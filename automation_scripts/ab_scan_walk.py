@@ -4,11 +4,10 @@
 Times native.compile_cohort on a near-unique scan-bound cohort (default
 1024x1200) against a second build of the extension compiled from an older
 revision of the source -- interleaved best-of-N so co-tenant drift hits
-both sides equally (the only stable quantity on this box is a same-minute
-ratio, CLAUDE.md). Used in round 5 to measure the tab-only AVX2 carrier
-walk.
+both sides equally (on a shared host only a same-minute ratio is stable).
+Used to measure the tab-only AVX2 carrier walk.
 
-Usage:  OLD_REF=<git-rev> timeout 1800 python -u automation_scripts/ab_scan_walk.py
+Usage:  OLD_REF=<git-rev> python -u automation_scripts/ab_scan_walk.py
 Env:    AB_SAMPLES (1024), AB_TRANSCRIPTS (1200), AB_REPS (5),
         OLD_REF (required: git revision providing the baseline .cpp)
 """

@@ -1,25 +1,24 @@
 #!/usr/bin/env python
-"""Stage-split of the device-resident neoantigen chain on the real TPU.
+"""Stage-split of the device-resident neoantigen chain on the GPU.
 
-Times, with honest 1-byte-fetch sync (block_until_ready is a no-op on the
-forwarded link, CLAUDE.md): the dense pass (execute + masks + gather-free
-one-hot scoring), the rank pass (stable sort + per-sample selection), the
-full run_chunk including the [S, top] fetches, and the bare fetch round
-trip. This is the measurement that exposed the one-hot LUT gather as the
-chain's dominant cost in round 3 (~580 ms of a ~795 ms dense pass; fixed by
-peptides.encode_windows -- ARCHITECTURE 2.6).
+Times, each ending in ``block_until_ready``: the dense pass (execute +
+masks + gather-free one-hot scoring), the rank pass (stable sort +
+per-sample selection), and the full run_chunk including the [S, top]
+fetch. This split is what exposed the one-hot LUT gather as the chain's
+dominant cost on the accelerator this was first tuned on (fixed by
+peptides.encode_windows).
 
-Every stage time also prints its %-of-peak denominator (utils/roofline):
-MFU against bf16 MXU peak for the dense scoring pass, HBM-bandwidth
-fraction for the executor-shaped and sort-shaped stages.
+Every stage time also prints its %-of-peak denominator (utils/roofline,
+keyed by the device's device_kind): MFU against the bf16 peak for the
+dense scoring pass, HBM-bandwidth fraction for the executor-shaped and
+sort-shaped stages.
 
-Usage:  timeout 1200 python automation_scripts/measure_chain_stages.py
+Usage:  python automation_scripts/measure_chain_stages.py
 Env:    NEO_SAMPLES (64), NEO_TRANSCRIPTS (600), NEO_REPS (3),
         NEO_EMBED (32), NEO_HIDDEN (128), NEO_DEPTH (1) -- head size
 """
 import os
 import sys
-import threading
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -40,26 +39,6 @@ K = 9
 
 
 def main():
-    # first-touch probe: see CLAUDE.md (a fresh process's first device
-    # interaction stalls for minutes ~half the time; retry in a new process)
-    def probe():
-        import numpy as np
-
-        import jax
-        import jax.numpy as jnp
-
-        x = jax.device_put(np.ones(1024, np.float32), jax.devices()[0])
-        float(np.asarray(jnp.sum(x).reshape(1))[0])
-        probe.ok = True
-
-    probe.ok = False
-    t = threading.Thread(target=probe, daemon=True)
-    t.start()
-    t.join(240)
-    if not probe.ok:
-        print("device first-touch stalled; re-run in a fresh process")
-        os._exit(3)
-
     import numpy as np
 
     import jax
@@ -122,8 +101,8 @@ def main():
               put(ann_e), params, np.int32(packed.total_res),
               put(tl), put(al))
 
-    def sync1(x):
-        np.asarray(x.ravel()[:1])
+    sync1 = jax.block_until_ready
+    kind = jax.devices()[0].device_kind
 
     print(f"cohort {N_SAMPLES}x{N_TXP}: out_bucket {out_bucket} "
           f"({packed.total_res / 1e6:.1f} MB live)", flush=True)
@@ -142,7 +121,6 @@ def main():
             ts.append(time.perf_counter() - t0)
         return min(ts)
 
-    t_sync = best(lambda: sync1(tape))
     t_dense = best(lambda: sync1(dense(*args_d)[2]))
     t_rank = best(lambda: sync1(rank(tape, cand, scores, put(st))))
     t_full = best(lambda: eng.run_chunk(programs))
@@ -152,40 +130,37 @@ def main():
         executor_bytes,
         hbm_fraction,
         mfu,
-        peak_bf16_flops,
-        peak_hbm_bps,
+        peaks,
         scoring_flops_per_window,
     )
 
     print(f"head: E={EMBED} H={HIDDEN} depth={DEPTH} "
           f"({scoring_flops_per_window(params) / 1e3:.1f} kFLOP/window, "
           f"block {blk})", flush=True)
-    print(f"1-byte fetch round trip: {t_sync * 1e3:.0f} ms", flush=True)
-    # the dense pass = executor (HBM-shaped) + scoring (MXU-shaped); its
+    # the dense pass = executor (HBM-shaped) + scoring (matmul-shaped); its
     # MFU denominator uses all out_bucket windows because the kernel
     # really scores the padding too
     flops = dense_pass_flops(out_bucket, params)
-    t_d = max(t_dense - t_sync, 1e-9)
-    print(f"dense (execute+mask+score) incl sync: {t_dense * 1e3:.0f} ms "
-          f"-> {flops / 1e12:.2f} TFLOP = {mfu(flops, t_d) * 100:.1f}% of "
-          f"bf16 MXU peak ({peak_bf16_flops() / 1e12:.0f} TF/s)",
+    print(f"dense (execute+mask+score): {t_dense * 1e3:.0f} ms "
+          f"-> {flops / 1e12:.2f} TFLOP = "
+          f"{mfu(flops, t_dense, kind) * 100:.1f}% of bf16 peak "
+          f"({peaks(kind).bf16_flops / 1e12:.0f} TF/s, {kind})",
           flush=True)
     # rank: one 3-operand stable sort over out_bucket lanes; minimal
     # traffic = log2 rounds x read+write of (key, key, value) i32 lanes
     import math
 
     sort_bytes = out_bucket * 12 * 2 * math.log2(max(out_bucket, 2))
-    t_r = max(t_rank - t_sync, 1e-9)
-    print(f"rank (sort+select) incl sync: {t_rank * 1e3:.0f} ms "
+    print(f"rank (sort+select): {t_rank * 1e3:.0f} ms "
           f"-> >= {sort_bytes / 1e9:.1f} GB sort traffic = "
-          f"{hbm_fraction(sort_bytes, t_r) * 100:.1f}% of HBM peak "
-          f"({peak_hbm_bps() / 1e9:.0f} GB/s)", flush=True)
+          f"{hbm_fraction(sort_bytes, t_rank, kind) * 100:.1f}% of HBM "
+          f"peak ({peaks(kind).hbm_bps / 1e9:.0f} GB/s)", flush=True)
     ex_bytes = executor_bytes(out_bucket)
     print(f"  (executor-shaped share of dense: {ex_bytes / 1e9:.2f} GB "
-          f"minimal HBM traffic)", flush=True)
+          f"per-byte executor traffic)", flush=True)
     print(f"full run_chunk incl [S,top] fetches: {t_full * 1e3:.0f} ms "
           f"({N_SAMPLES / t_full:.0f} samples/s; whole-chain MFU "
-          f"{mfu(flops, t_full) * 100:.1f}%)", flush=True)
+          f"{mfu(flops, t_full, kind) * 100:.1f}%)", flush=True)
 
     # compacted chain (wide heads): the fused mask+compact+score+rank
     # dispatch, compared against the dense+rank sum on the same chunk
@@ -207,16 +182,14 @@ def main():
         c_flops = dense_pass_flops(c_bucket, params)
         print(
             f"compact chain (mask+sort+gather+score+rank, one dispatch) "
-            f"incl sync: {t_comp * 1e3:.0f} ms -> vs dense+rank "
-            f"{(t_dense + t_rank - t_sync) * 1e3:.0f} ms "
-            f"({(t_dense + t_rank - t_sync) / t_comp:.2f}x); candidate "
+            f": {t_comp * 1e3:.0f} ms -> vs dense+rank "
+            f"{(t_dense + t_rank) * 1e3:.0f} ms "
+            f"({(t_dense + t_rank) / t_comp:.2f}x); candidate "
             f"bucket {c_bucket} = {c_bucket / out_bucket:.1%} of lanes, "
-            f"scored-FLOP MFU {mfu(c_flops, max(t_comp - t_sync, 1e-9)) * 100:.1f}%",
+            f"scored-FLOP MFU {mfu(c_flops, t_comp, kind) * 100:.1f}%",
             flush=True,
         )
 
 
 if __name__ == "__main__":
     main()
-    sys.stdout.flush()
-    os._exit(0)

@@ -5,13 +5,13 @@ decode+compile (the in-process analogue of the reference's per-batch
 `bcftools view -S` sharding, automation_scripts/parallization_python.py:
 196-207). This script measures the efficiency on one machine by running the
 two shards SEQUENTIALLY -- each shard then sees the whole machine, as each
-host would on a real pod -- and reports
+host would in a real cluster -- and reports
 
     efficiency = T_1proc / (2 * max(T_shard0, T_shard1))
 
 Usage: python automation_scripts/measure_multihost_scaling.py
        [n_samples] [n_transcripts]
-Results are recorded in ARCHITECTURE.md §2.7.
+Not yet measured on the H100 host.
 """
 import os
 import shutil

@@ -1,20 +1,17 @@
 #!/usr/bin/env python
-"""Measure the dense device-resident neoantigen chain on the real TPU.
+"""Measure the dense device-resident neoantigen chain on the GPU.
 
-Records the hardware cost of the full execute -> mask -> bf16 MXU score ->
-rank chain (downstream/device_resident.py) with HONEST sync: on this
-environment's forwarded link ``block_until_ready()`` returns before the
-computation runs (CLAUDE.md), so every stage is timed by the real
-device-to-host fetch that run_chunk performs ([S, top] rows). This is the
-reproducible artifact behind ARCHITECTURE 2.6's device-resident numbers --
-the accelerator role the reference stubs (reference:
-src/data_structures/InternalRep/gir.rs:283-299, README.md:72).
+Records the cost of the full execute -> mask -> bf16 score -> rank chain
+(downstream/device_resident.py); each run_chunk ends in the device-to-host
+fetch of its [S, top] rows, which is the sync. The accelerator role the
+reference stubs (reference: src/data_structures/InternalRep/gir.rs:283-299,
+README.md:72).
 
-Reports, per run: cold wall (remote XLA compile + run; served by the
-persistent compile cache when warm) and warm best-of-N wall for run_chunk,
-plus a host-path comparison on the same chunk.
+Reports, per run: cold wall (compile + run; served by the persistent
+compile cache when warm) and warm best-of-N wall for run_chunk, plus a
+host-path comparison on the same chunk.
 
-Usage:  timeout 1800 python automation_scripts/measure_neoantigen_chain.py
+Usage:  python automation_scripts/measure_neoantigen_chain.py
 Env:    NEO_SAMPLES (64), NEO_TRANSCRIPTS (600), NEO_REPS (3), NEO_HOST=0
         to skip the host-path comparison.
 """
@@ -37,29 +34,6 @@ K = 9
 
 
 def main():
-    # first-touch probe (CLAUDE.md): a fresh process's first device
-    # interaction stalls for minutes ~half the time and rarely recovers;
-    # detect it under a deadline and exit retryably instead of wedging
-    import threading
-
-    def probe():
-        import numpy as np
-
-        import jax
-        import jax.numpy as jnp
-
-        x = jax.device_put(np.ones(1024, np.float32), jax.devices()[0])
-        float(np.asarray(jnp.sum(x).reshape(1))[0])
-        probe.ok = True
-
-    probe.ok = False
-    t = threading.Thread(target=probe, daemon=True)
-    t.start()
-    t.join(240)
-    if not probe.ok:
-        print("device first-touch stalled; re-run in a fresh process")
-        os._exit(3)
-
     from genvcf import random_cohort, write_fasta, write_synthetic_vcf
     from vcf2prot_tpu.compiler.haplotype import RefBlob
     from vcf2prot_tpu.compiler.qc import QC_OFF
@@ -102,8 +76,7 @@ def main():
     params = init_params(K)
     eng = DeviceNeoantigenEngine(blob, K, params=params, top=200)
 
-    # cold: remote XLA compile (1-5 min per fused kernel when the persistent
-    # cache is cold) + one run; run_chunk's [S, top] fetch is the true sync
+    # cold: compile + one run; run_chunk's [S, top] fetch is the sync
     t0 = time.perf_counter()
     rows = eng.run_chunk(programs)
     cold = time.perf_counter() - t0
@@ -165,6 +138,3 @@ def main():
 
 if __name__ == "__main__":
     main()
-    sys.stdout.flush()
-    sys.stderr.flush()
-    os._exit(0)  # abandoned device threads must not hang teardown

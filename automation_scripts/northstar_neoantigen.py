@@ -5,27 +5,28 @@ Measures, at the 2,504-sample north-star cohort (BASELINE.json's scale,
 shared-variant regime like northstar_scale.py), the end-to-end wall of:
 
 * ``resident``  -- the fully device-resident chain (--neoantigen_only -g
-  tpu): execute + mask + bf16 MXU score + rank in HBM, only [S, top] rows
-  cross the link; swept over chunk sizes (NEO_CHUNK_MB list).
-* ``hybrid``    -- the best host-centric design when a TPU exists: host
+  gpu): execute + mask + bf16 score + rank on the device, only [S, top]
+  rows leave it; swept over chunk sizes (NEO_CHUNK_MB list).
+* ``hybrid``    -- the best host-centric design with a GPU present: host
   execute + native candidate collection + one bucketed device scoring
   batch (--neoantigen_device -g mt).
 
-Each leg runs in a FRESH subprocess behind the first-touch probe
-(CLAUDE.md: the forwarded link stalls for minutes ~half the time), cold
-and warm walls recorded. Writes the regenerable artifact
-``automation_scripts/artifacts/northstar_neoantigen.tsv`` that bench.py's
-``neo_northstar_*`` JSON fields cite (reference analogue: the committed
-TSV protocol of /root/reference/automation_scripts/performance_benchmark.py:95-100).
+Each leg runs in its own subprocess, one after another, so exactly one
+process holds the card at a time (this parent never starts JAX); cold and
+warm walls recorded. Writes
+``automation_scripts/artifacts/northstar_neoantigen.tsv`` (reference
+analogue: the TSV protocol of the reference's
+automation_scripts/performance_benchmark.py:95-100).
 
-Usage:  timeout 7200 python -u automation_scripts/northstar_neoantigen.py
+Usage:  python -u automation_scripts/northstar_neoantigen.py
 Env:    NS_SAMPLES (2504), NS_TRANSCRIPTS (2000), NEO_CHUNK_MB
-        ("128,256"), NS_HYBRID=0 to skip the hybrid leg, NS_ATTEMPTS (3)
+        ("128,256"), NS_HYBRID=0 to skip the hybrid leg
 """
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -36,7 +37,6 @@ N_SAMPLES = int(os.environ.get("NS_SAMPLES", "2504"))
 N_TXP = int(os.environ.get("NS_TRANSCRIPTS", "2000"))
 CHUNK_MB = [int(c) for c in os.environ.get("NEO_CHUNK_MB",
                                            "128,256").split(",")]
-ATTEMPTS = int(os.environ.get("NS_ATTEMPTS", "3"))
 TIMEOUT = int(os.environ.get("NS_TIMEOUT", "1800"))
 K = 9
 ART = os.path.join(_ROOT, "automation_scripts", "artifacts",
@@ -48,30 +48,18 @@ def log(*a):
 
 
 _LEG = r"""
-import json, sys, time, shutil, os, threading
+import json, sys, time, shutil, os
 os.environ.setdefault("NO_TEST", "1")
 repo, vcf, fasta, outdir, mode, chunk_mb = sys.argv[1:7]
 sys.path.insert(0, repo)
-
-def _probe():
-    import numpy as np
-    import jax, jax.numpy as jnp
-    x = jax.device_put(np.ones(1024, np.float32), jax.devices()[0])
-    float(np.asarray(jnp.sum(x).reshape(1))[0])
-    _probe.ok = True
-_probe.ok = False
-t = threading.Thread(target=_probe, daemon=True)
-t.start(); t.join(float(os.environ.get("BENCH_NEO_PROBE_S", "240")))
-if not _probe.ok:
-    print(json.dumps({"stalled": True})); sys.stdout.flush(); os._exit(3)
-
+import jax
 from vcf2prot_tpu.pipeline import PipelineConfig, run_pipeline
 from vcf2prot_tpu.runtime.engine import Engine
 def one():
     shutil.rmtree(outdir, ignore_errors=True); os.makedirs(outdir)
     cfg = PipelineConfig(
         vcf_path=vcf, fasta_path=fasta, outdir=outdir,
-        engine=Engine.TPU if mode == "resident" else Engine.MT,
+        engine=Engine.DEVICE if mode == "resident" else Engine.MT,
         num_threads=os.cpu_count(), qc=None,
         neoantigen_k=9, neoantigen_only=True,
         neoantigen_device=(mode != "resident"),
@@ -84,32 +72,23 @@ warm = min(one()[0] for _ in range(2))
 print(json.dumps({
     "cold": cold, "warm": warm, "samples": res.n_samples,
     "tape_bytes": res.total_output_bytes,
-})); sys.stdout.flush()
-os._exit(0)
+    "device_kind": jax.devices()[0].device_kind,
+}))
 """
 
 
 def run_leg(vcf, fasta, mode, chunk_mb):
-    outdir = os.path.join("/tmp/vcf2prot_northstar", f"neo_{mode}_{chunk_mb}")
-    for attempt in range(ATTEMPTS):
-        proc = None
-        try:
-            proc = subprocess.run(
-                [sys.executable, "-c", _LEG, _ROOT, vcf, fasta, outdir,
-                 mode, str(chunk_mb)],
-                capture_output=True, timeout=TIMEOUT, text=True,
-            )
-            payload = json.loads(proc.stdout.strip().splitlines()[-1])
-            if payload.get("stalled"):
-                log(f"{mode}/{chunk_mb}MB attempt {attempt + 1}: first-touch "
-                    "stall; retrying in a fresh process")
-                continue
-            return payload
-        except Exception as err:
-            log(f"{mode}/{chunk_mb}MB attempt {attempt + 1} failed: {err}")
-            if proc is not None and proc.stderr:
-                log(proc.stderr[-800:])
-    return None
+    outdir = os.path.join(tempfile.gettempdir(), "vcf2prot_northstar",
+                          f"neo_{mode}_{chunk_mb}")
+    proc = subprocess.run(
+        [sys.executable, "-c", _LEG, _ROOT, vcf, fasta, outdir, mode,
+         str(chunk_mb)],
+        capture_output=True, timeout=TIMEOUT, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"{mode}/{chunk_mb}MB leg failed:\n"
+                           f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def main():
@@ -124,9 +103,6 @@ def main():
     best_resident = None
     for chunk_mb in CHUNK_MB:
         r = run_leg(vcf, fasta, "resident", chunk_mb)
-        if r is None:
-            log(f"resident {chunk_mb}MB: all attempts failed")
-            continue
         log(f"resident {chunk_mb}MB chunks: warm {r['warm']:.1f}s "
             f"({r['samples'] / r['warm']:.0f} samples/s), cold "
             f"{r['cold']:.1f}s, tape {r['tape_bytes'] / 1e9:.2f} GB")
@@ -136,13 +112,13 @@ def main():
     hybrid = None
     if os.environ.get("NS_HYBRID", "1") == "1":
         hybrid = run_leg(vcf, fasta, "hybrid", 0)
-        if hybrid:
-            log(f"hybrid (host execute + device batch score): warm "
-                f"{hybrid['warm']:.1f}s, cold {hybrid['cold']:.1f}s")
-            rows.append(("hybrid", 0, hybrid))
+        log(f"hybrid (host execute + device batch score): warm "
+            f"{hybrid['warm']:.1f}s, cold {hybrid['cold']:.1f}s")
+        rows.append(("hybrid", 0, hybrid))
 
     # e2e MFU of the best resident config: dense-pass FLOPs over the whole
-    # tape (the chain scores out_bucket lanes per chunk) / wall / bf16 peak
+    # tape (the chain scores out_bucket lanes per chunk) / wall / the bf16
+    # peak of the device the leg ran on
     from vcf2prot_tpu.downstream.scoring import init_params
     from vcf2prot_tpu.utils.roofline import mfu, scoring_flops_per_window
 
@@ -152,7 +128,8 @@ def main():
             scoring_flops_per_window(init_params(K))
             * best_resident[1]["tape_bytes"]
         )
-        mfu_pct = mfu(flops, best_resident[1]["warm"]) * 100
+        mfu_pct = mfu(flops, best_resident[1]["warm"],
+                      best_resident[1]["device_kind"]) * 100
 
     os.makedirs(os.path.dirname(ART), exist_ok=True)
     with open(ART, "w") as fh:
@@ -189,6 +166,3 @@ def main():
 
 if __name__ == "__main__":
     main()
-    sys.stdout.flush()
-    sys.stderr.flush()
-    os._exit(0)

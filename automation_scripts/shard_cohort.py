@@ -7,8 +7,13 @@ BCF/VCF into per-batch sample subsets with ``bcftools view -S`` and run one
 pipeline process per batch. Within one host the in-process engines already
 use every core, so this wrapper is mainly for spreading one cohort across
 *machines* (submit one batch per node) or for memory-capping very large
-cohorts; the TPU-native equivalent for multi-chip scale-out is
+cohorts; the in-process equivalent for several GPUs of one host is
 ``vcf2prot_tpu.parallel.sharded`` (one mesh, dp-sharded cohort).
+
+With a device engine (``-g gpu`` or ``auto``) every job opens a
+card, and a JAX process reserves most of a card's memory, so ``-j`` is capped
+at the number of visible cards and each job is pinned to its own card with
+``CUDA_VISIBLE_DEVICES``. This wrapper itself never starts JAX.
 """
 import argparse
 import os
@@ -27,8 +32,30 @@ def get_samples(vcf):
     return [s for s in out.stdout.splitlines() if s]
 
 
+def visible_gpus():
+    """Ids of the GPUs a child process may use, read without starting JAX:
+    ``CUDA_VISIBLE_DEVICES`` when set, else ``nvidia-smi -L``."""
+    env = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if env is not None:
+        return [d.strip() for d in env.split(",") if d.strip()]
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "-L"], capture_output=True, text=True, check=True,
+        ).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return []
+    return [str(i) for i, line in enumerate(
+        l for l in out.splitlines() if l.startswith("GPU ")
+    )]
+
+
+def run_lane(lane):
+    """Run a list of batches one after another (on one card, if pinned)."""
+    return [run_batch(job) for job in lane]
+
+
 def run_batch(args):
-    vcf, fasta, outdir, samples, engine = args
+    vcf, fasta, outdir, samples, engine, card = args
     os.makedirs(outdir, exist_ok=True)
     sample_file = os.path.join(outdir, "samples.txt")
     with open(sample_file, "w") as fh:
@@ -44,6 +71,8 @@ def run_batch(args):
     ]
     env = dict(os.environ)
     env.setdefault("NO_TEST", "1")
+    if card is not None:
+        env["CUDA_VISIBLE_DEVICES"] = card
     proc = subprocess.run(cmd, env=env)
     return proc.returncode
 
@@ -63,21 +92,28 @@ def main(argv=None):
         samples[i:i + args.batch_size]
         for i in range(0, len(samples), args.batch_size)
     ]
-    jobs = [
-        (
-            args.vcf_file,
-            args.fasta_ref,
-            os.path.join(args.output_dir, f"batch_{i:04d}"),
-            batch,
-            args.engine,
-        )
-        for i, batch in enumerate(batches)
+    device = args.engine.lower() in ("gpu", "auto")
+    cards = visible_gpus() if device else []
+    n_lanes = min(args.jobs, len(cards)) if cards else args.jobs
+    n_lanes = max(n_lanes, 1)
+    lanes = [
+        [
+            (
+                args.vcf_file,
+                args.fasta_ref,
+                os.path.join(args.output_dir, f"batch_{i:04d}"),
+                batch,
+                args.engine,
+                cards[lane] if cards else None,
+            )
+            for i, batch in enumerate(batches) if i % n_lanes == lane
+        ]
+        for lane in range(n_lanes)
     ]
     failures = 0
-    with ProcessPoolExecutor(max_workers=args.jobs) as pool:
-        for rc in pool.map(run_batch, jobs):
-            if rc != 0:
-                failures += 1
+    with ProcessPoolExecutor(max_workers=n_lanes) as pool:
+        for rcs in pool.map(run_lane, lanes):
+            failures += sum(rc != 0 for rc in rcs)
     print(f"{len(batches) - failures}/{len(batches)} batches succeeded")
     return 1 if failures else 0
 

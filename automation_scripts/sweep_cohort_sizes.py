@@ -7,8 +7,8 @@ cohort VCF, per-size prefix subsets produced by cutting sample COLUMNS
 (``cut -f 1-9,10-N`` -- every size sees the same variant records), a
 page-cache warmup pass, then a timed end-to-end run per tool per size. The
 reference times a single run; this records the BEST of ``--reps`` (default 2,
-after one discarded warmup) because this machine has 2 vCPUs and noisy
-co-tenancy (CLAUDE.md) -- single-run numbers here swing 2-3x.
+after one discarded warmup) because host timings on a shared machine are
+noisy.
 
 Output TSV columns: tool_name, input_size, runtime_s, samples_per_s --
 the reference's Performance_Results.tsv schema plus throughput.
@@ -16,8 +16,6 @@ the reference's Performance_Results.tsv schema plus throughput.
     python automation_scripts/sweep_cohort_sizes.py \
         --out automation_scripts/artifacts/sweep_cohort_sizes.tsv
 
-Committed artifact: automation_scripts/artifacts/sweep_cohort_sizes.tsv
-(regenerate with the command above; results discussed in ARCHITECTURE 2.8).
 """
 import argparse
 import os

@@ -1,25 +1,25 @@
 #!/usr/bin/env python
 """Scaling sweep of the resident-chain kernels: 2^25 -> 2^28 lanes.
 
-Round 4 measured the monolithic dense+rank cost scaling ~2x worse than
-linear from 2^25 to 2^28 lanes (HBM working-set pressure; BACKLOG #2a) and
-worked around it with 128 MB chunks. Round 5 replaced the monolithic dense
+The monolithic dense+rank body once scaled worse than linear from 2^25 to
+2^28 lanes (HBM working-set pressure) and was worked around with 128 MB
+chunks. Round 5 replaced the monolithic dense
 pass with a tiled lax.map (nothing of size [out, k] or full-length int32
 materialized) and the global rank sort with a segmented per-block top-k;
-this sweep is the evidence: per-lane cost of each kernel at 2^25, 2^26,
-2^27 and 2^28 lanes, production (tiled + segmented) vs the round-4 bodies
-(legacy dense inlined below; global rank = spb=0), all warm best-of-N with
-honest 1-byte-fetch sync (block_until_ready is a no-op here, CLAUDE.md).
+this sweep measures per-lane cost of each kernel at 2^25, 2^26, 2^27 and
+2^28 lanes, production (tiled + segmented) vs the round-4 bodies (legacy
+dense inlined below; global rank = spb=0), all warm best-of-N, each timing
+ending in ``block_until_ready``.
 
 Writes automation_scripts/artifacts/dense_scaling_sweep.tsv.
 
-Usage:  timeout 5400 python -u automation_scripts/sweep_dense_scaling.py
+Usage:  python -u automation_scripts/sweep_dense_scaling.py
 Env:    SWEEP_SIZES ("128,256,512,1024" samples at 1200 transcripts),
         SWEEP_MODES ("tiled,legacy,seg,global"), SWEEP_REPS (3)
 """
 import os
 import sys
-import threading
+import tempfile
 import time
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -86,24 +86,6 @@ def _legacy_dense_fn(out_bucket: int, k: int, blk: int):
 
 
 def main():
-    def probe():
-        import numpy as np
-
-        import jax
-        import jax.numpy as jnp
-
-        x = jax.device_put(np.ones(1024, np.float32), jax.devices()[0])
-        float(np.asarray(jnp.sum(x).reshape(1))[0])
-        probe.ok = True
-
-    probe.ok = False
-    t = threading.Thread(target=probe, daemon=True)
-    t.start()
-    t.join(240)
-    if not probe.ok:
-        log("device first-touch stalled; re-run in a fresh process")
-        os._exit(3)
-
     import numpy as np
 
     import jax
@@ -118,11 +100,10 @@ def main():
 
     params = init_params(K)
     rows = []
-    workdir = "/tmp/vcf2prot_neochain"
+    workdir = os.path.join(tempfile.gettempdir(), "vcf2prot_neochain")
     os.makedirs(workdir, exist_ok=True)
 
-    def sync1(x):
-        np.asarray(x.ravel()[:1])
+    sync1 = jax.block_until_ready
 
     def best(f):
         ts = []
@@ -197,7 +178,7 @@ def main():
                 dr._dense_fn(out_bucket, K, blk, m_task, m_ann), args_d
             )
         if "aligned" in MODES and dr.use_aligned_dense(
-            out_bucket, int(combined.shape[0]), task_bucket
+            out_bucket, int(combined.shape[0])
         ):
             ws, wb, bp, bs, wlo, blo, mw, mb = dr.aligned_dense_inputs(
                 packed.dst, packed.src_biased, packed.total_res,
@@ -282,6 +263,3 @@ def main():
 
 if __name__ == "__main__":
     main()
-    sys.stdout.flush()
-    sys.stderr.flush()
-    os._exit(0)

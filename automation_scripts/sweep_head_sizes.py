@@ -1,29 +1,28 @@
 #!/usr/bin/env python
 """Head-size sweep of the neoantigen e2e: device-resident vs host-execute.
 
-The round-3 verdict's open question: the device margin was measured only at
-the toy 32x128 scaffold head, where the chain is gather/sort-bound and the
-MXU is idle. This sweep holds the cohort fixed (the standard 128x1200
-headline workload) and scales the scoring head's arithmetic intensity
-(hidden in {128, 512, 2048} and a deep variant), measuring both legs in one
-subprocess each (one first-touch risk, shared warm backend) exactly like
-bench.py's neoantigen harness. Expectation (ARCHITECTURE 2.6): the
+At the scaffold head the chain is gather/sort-bound and the matrix units
+idle. This sweep holds the cohort fixed (the standard 128x1200 headline
+workload) and scales the scoring head's arithmetic intensity (hidden in
+{128, 512, 2048} and a deep variant), measuring every leg of one config in
+one subprocess (the configs run one after another, so one process holds
+the card at a time; this parent stays on the CPU). Expectation: the
 device/host ratio grows with head width because the extra FLOPs ride the
-MXU on device but multiply the 2-vCPU host's matmul time.
+tensor cores on device but multiply the host's matmul time.
 
 Writes automation_scripts/artifacts/head_size_sweep.tsv and prints progress
-to stderr. Run under timeout; a stalled first touch retries in a fresh
-process (CLAUDE.md).
+to stderr.
 
-    timeout 5400 python -u automation_scripts/sweep_head_sizes.py
+    python -u automation_scripts/sweep_head_sizes.py
 Env: SWEEP_SAMPLES (128), SWEEP_TRANSCRIPTS (1200), SWEEP_CONFIGS
-     ("128x1,512x1,2048x1,512x3" as HxDEPTH), SWEEP_ATTEMPTS (3),
-     SWEEP_TIMEOUT (1500 s per config).
+     ("128x1,512x1,2048x1,512x3" as HxDEPTH), SWEEP_TIMEOUT (1500 s per
+     config).
 """
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,9 +31,8 @@ sys.path.insert(0, os.path.join(REPO, "tests"))
 
 N_SAMPLES = int(os.environ.get("SWEEP_SAMPLES", "128"))
 N_TXP = int(os.environ.get("SWEEP_TRANSCRIPTS", "1200"))
-ATTEMPTS = int(os.environ.get("SWEEP_ATTEMPTS", "3"))
 TIMEOUT = int(os.environ.get("SWEEP_TIMEOUT", "1500"))
-WORKDIR = "/tmp/vcf2prot_headsweep"
+WORKDIR = os.path.join(tempfile.gettempdir(), "vcf2prot_headsweep")
 ART = os.path.join(REPO, "automation_scripts", "artifacts",
                    "head_size_sweep.tsv")
 
@@ -44,36 +42,24 @@ def log(*a):
 
 
 _SNIPPET = r"""
-import json, sys, time, shutil, os, threading
+import json, sys, time, shutil, os
 os.environ.setdefault("NO_TEST", "1")
 repo, vcf, fasta, outbase, npz = sys.argv[1:6]
 sys.path.insert(0, repo)
-
-def _probe():
-    import numpy as np
-    import jax, jax.numpy as jnp
-    x = jax.device_put(np.ones(1024, np.float32), jax.devices()[0])
-    float(np.asarray(jnp.sum(x).reshape(1))[0])
-    _probe.ok = True
-_probe.ok = False
-t = threading.Thread(target=_probe, daemon=True)
-t.start(); t.join(float(os.environ.get("BENCH_NEO_PROBE_S", "240")))
-if not _probe.ok:
-    print(json.dumps({"stalled": True})); sys.stdout.flush(); os._exit(3)
-
+import jax
 from vcf2prot_tpu.pipeline import PipelineConfig, run_pipeline
 from vcf2prot_tpu.runtime.engine import Engine
 def one(mode):
-    # tpu  = fully device-resident chain;
+    # device = fully device-resident chain;
     # mt   = hybrid: host execute + host collection + ONE device scoring
-    #        batch (the best host-centric design when a TPU exists);
+    #        batch (the best host-centric design with a GPU present);
     # host = pure host: numpy scoring, no accelerator anywhere -- the
     #        reference's actual capability level (its GPU engine is a stub)
     outdir = outbase + "_" + mode
     shutil.rmtree(outdir, ignore_errors=True); os.makedirs(outdir)
     cfg = PipelineConfig(
         vcf_path=vcf, fasta_path=fasta, outdir=outdir,
-        engine=Engine.TPU if mode == "tpu" else Engine.MT,
+        engine=Engine.DEVICE if mode == "device" else Engine.MT,
         num_threads=os.cpu_count(), qc=None,
         neoantigen_k=9, neoantigen_only=True,
         neoantigen_device=(mode == "mt"),
@@ -81,15 +67,14 @@ def one(mode):
     )
     t0 = time.perf_counter(); run_pipeline(cfg)
     return time.perf_counter() - t0
-out = {}
-for mode in ("tpu", "mt"):
+out = {"device_kind": jax.devices()[0].device_kind}
+for mode in ("device", "mt"):
     cold = one(mode)
     out[mode] = {"cold": cold, "dt": min(one(mode) for _ in range(2))}
 if os.environ.get("SWEEP_HOST_ONLY", "1") == "1":
     cold = one("host")  # pure-host leg: 1 warm rep (it is the slow anchor)
     out["host"] = {"cold": cold, "dt": one("host")}
-print(json.dumps(out)); sys.stdout.flush()
-os._exit(0)
+print(json.dumps(out))
 """
 
 
@@ -150,36 +135,23 @@ def main():
         flops_run = scored_windows * scoring_flops_per_window(params)
         log(f"--- {label}: {scoring_flops_per_window(params) / 1e3:.0f} "
             f"kFLOP/window, {flops_run / 1e12:.2f} TFLOP/run")
-        results = None
-        for attempt in range(ATTEMPTS):
-            try:
-                t0 = time.perf_counter()
-                proc = subprocess.run(
-                    [sys.executable, "-c", _SNIPPET, REPO, vcf, fasta,
-                     os.path.join(WORKDIR, f"neo_{label}"), npz],
-                    capture_output=True, timeout=TIMEOUT, text=True,
-                )
-                payload = json.loads(proc.stdout.strip().splitlines()[-1])
-                if payload.get("stalled"):
-                    log(f"{label} attempt {attempt + 1}: first-touch "
-                        "stall; retrying fresh")
-                    continue
-                results = payload
-                log(f"{label}: subprocess took "
-                    f"{time.perf_counter() - t0:.0f}s")
-                break
-            except Exception as err:
-                log(f"{label} attempt {attempt + 1} failed: {err}")
-        if results is None:
-            log(f"{label}: NO RESULT after {ATTEMPTS} attempts")
-            continue
-        dev, host = results["tpu"], results["mt"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _SNIPPET, REPO, vcf, fasta,
+             os.path.join(WORKDIR, f"neo_{label}"), npz],
+            capture_output=True, timeout=TIMEOUT, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"{label} failed:\n{proc.stderr[-2000:]}")
+        results = json.loads(proc.stdout.strip().splitlines()[-1])
+        log(f"{label}: subprocess took {time.perf_counter() - t0:.0f}s")
+        dev, host = results["device"], results["mt"]
         pure = results.get("host")
         ratio = host["dt"] / dev["dt"]
         ratio_cold = host["cold"] / dev["cold"]
         pure_warm = pure["dt"] if pure else float("nan")
         pure_ratio = pure["dt"] / dev["dt"] if pure else float("nan")
-        chain_mfu = mfu(flops_run, dev["dt"])
+        chain_mfu = mfu(flops_run, dev["dt"], results["device_kind"])
         rows.append(
             (label, hidden, depth, dev["cold"], dev["dt"], host["cold"],
              host["dt"], pure_warm, ratio, ratio_cold, pure_ratio,
@@ -201,11 +173,11 @@ def main():
             "cold (pure_host: 1 rep); e2e_mfu = scored-window matmul "
             "FLOPs / device warm wall / bf16 peak\n"
         )
-        fh.write(
-            "label\thidden\tdepth\tdev_cold_s\tdev_warm_s\thybrid_cold_s\t"
-            "hybrid_warm_s\tpure_host_warm_s\tratio_warm\tratio_cold\t"
-            "ratio_vs_pure_host\te2e_mfu\n"
-        )
+        fh.write("\t".join([
+            "label", "hidden", "depth", "dev_cold_s", "dev_warm_s",
+            "hybrid_cold_s", "hybrid_warm_s", "pure_host_warm_s",
+            "ratio_warm", "ratio_cold", "ratio_vs_pure_host", "e2e_mfu",
+        ]) + "\n")
         for r in rows:
             fh.write(
                 f"{r[0]}\t{r[1]}\t{r[2]}\t{r[3]:.3f}\t{r[4]:.3f}\t"
@@ -217,5 +189,3 @@ def main():
 
 if __name__ == "__main__":
     main()
-    sys.stderr.flush()
-    os._exit(0)

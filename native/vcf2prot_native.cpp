@@ -3310,7 +3310,7 @@ PyObject* py_write_fasta_arrays(PyObject*, PyObject* args) {
 }
 
 // Word-aligned executor program for one packed chunk: the native twin of
-// runtime/tpu_engine.build_aligned_program's numpy oracle (tests pin array
+// runtime/device_engine.build_aligned_program's numpy oracle (tests pin array
 // equality). One O(tasks + boundary-bytes) pass -- no word-length
 // temporaries, so at north-star scale this costs ~30 ms where the numpy
 // form's 33M-word cover/cumsum/nonzero cost ~2 s per chunk (the host-side

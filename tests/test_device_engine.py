@@ -1,6 +1,6 @@
 """Device-engine parity: the XLA gather executor must agree byte-for-byte with
 the serial host oracle on randomized cohorts (run on the CPU backend here; the
-same code path runs on TPU)."""
+same code path runs on the GPU)."""
 import numpy as np
 import pytest
 
@@ -9,7 +9,7 @@ from vcf2prot_tpu.compiler.haplotype import RefBlob, compile_haplotype
 from vcf2prot_tpu.compiler.qc import QcConfig
 from vcf2prot_tpu.frontend.maps import group_muts_per_transcript
 from vcf2prot_tpu.runtime.cpu_engine import execute_tasks
-from vcf2prot_tpu.runtime.tpu_engine import TpuEngine
+from vcf2prot_tpu.runtime.device_engine import DeviceEngine
 
 QC = QcConfig()
 
@@ -28,7 +28,7 @@ def build_programs(seed, n_samples=6, n_transcripts=10):
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_device_matches_oracle(seed):
     ref, blob, programs = build_programs(seed)
-    engine = TpuEngine(blob)
+    engine = DeviceEngine(blob)
     device_out = engine.execute(programs)
     assert len(device_out) == len(programs)
     for prog, dev in zip(programs, device_out):
@@ -38,7 +38,7 @@ def test_device_matches_oracle(seed):
 
 def test_empty_programs():
     ref, blob, programs = build_programs(7, n_samples=1)
-    engine = TpuEngine(blob)
+    engine = DeviceEngine(blob)
     from vcf2prot_tpu.compiler.haplotype import HaplotypeProgram
 
     outs = engine.execute([HaplotypeProgram()])
@@ -47,7 +47,7 @@ def test_empty_programs():
 
 def test_bucket_reuse_across_chunks():
     ref, blob, programs = build_programs(11)
-    engine = TpuEngine(blob)
+    engine = DeviceEngine(blob)
     engine.execute(programs[:3])
     n_compiled = len(engine._run_cache)
     engine.execute(programs[:3])
@@ -57,13 +57,13 @@ def test_bucket_reuse_across_chunks():
 def test_aligned_executor_matches_delta_and_oracle(monkeypatch):
     """The word-aligned production kernel and the per-byte delta fallback
     must both equal the host oracle byte-for-byte (ARCHITECTURE 2.3:
-    aligned32 is 1.34x faster on the real chip, delta stays as fallback)."""
+    aligned32 is the default, delta stays as fallback)."""
     ref, blob, programs = build_programs(5, n_samples=8, n_transcripts=12)
     total = sum(p.res_len for p in programs)
     assert total >= 1024  # the aligned path engages above this floor
-    aligned = TpuEngine(blob).execute(programs)
+    aligned = DeviceEngine(blob).execute(programs)
     monkeypatch.setenv("VCF2PROT_ALIGNED_EXEC", "0")
-    delta = TpuEngine(blob).execute(programs)
+    delta = DeviceEngine(blob).execute(programs)
     for prog, a, d in zip(programs, aligned, delta):
         oracle = execute_tasks(prog, blob)
         np.testing.assert_array_equal(oracle, a)
@@ -75,7 +75,7 @@ def test_build_aligned_program_partition():
     every byte is either in a word-uniform middle of exactly one task or on
     the boundary list, and all indices replay to the oracle output."""
     from vcf2prot_tpu.runtime.pack import pack_cohort
-    from vcf2prot_tpu.runtime.tpu_engine import build_aligned_program
+    from vcf2prot_tpu.runtime.device_engine import build_aligned_program
 
     ref, blob, programs = build_programs(3, n_samples=4)
     packed = pack_cohort(programs, blob)

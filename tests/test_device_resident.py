@@ -157,9 +157,9 @@ def test_device_reports_chunked_across_samples(tmp_path):
 
 def test_multi_chunk_run_presents_one_shape_set(tmp_path, monkeypatch):
     """A multi-chunk cohort must present exactly ONE input-shape tuple to
-    each jitted device function: distinct shapes retrace, and on the real
-    chip's remote XLA each retrace is a 1-5 minute compile. The run-wide
-    Buckets folding guarantees at most one compile per function per run."""
+    each jitted device function: distinct shapes retrace and recompile. The
+    run-wide Buckets folding guarantees at most one compile per function
+    per run."""
     import jax.tree_util as jtu
 
     names, progs, blob = build_cohort(seed=11, n_samples=4)
@@ -294,7 +294,8 @@ def test_fallback_writes_match_host(tmp_path, monkeypatch):
     b.mkdir()
     tapes = [execute_tasks(p, blob) for p in progs]
     cohort.write_cohort_neoantigen_reports(str(a), names, progs, tapes, k)
-    write_device_neoantigen_reports(str(b), names, progs, blob, k)
+    reports = write_device_neoantigen_reports(str(b), names, progs, blob, k)
+    assert reports.host_chunks == 1
     for name in names:
         fa = (a / f"{name}.neoantigens.tsv").read_text().splitlines()
         fb = (b / f"{name}.neoantigens.tsv").read_text().splitlines()
@@ -307,9 +308,10 @@ def test_no_candidates_writes_header_only(tmp_path):
     names, progs, blob = build_cohort(seed=21, n_samples=2)
     # k longer than any transcript span -> zero valid windows
     k = 100_000
-    paths = write_device_neoantigen_reports(
+    paths, host_chunks = write_device_neoantigen_reports(
         str(tmp_path), names, progs, blob, k
     )
+    assert host_chunks == 0
     assert len(paths) == len(names)
     for p in paths:
         lines = open(p).read().splitlines()
@@ -318,9 +320,16 @@ def test_no_candidates_writes_header_only(tmp_path):
         ]
 
 
-def test_cli_neoantigen_only_end_to_end(tmp_path):
-    """--neoantigen_only -g tpu: no FASTAs, TSVs match the host cohort run."""
+def test_cli_neoantigen_only_end_to_end(tmp_path, monkeypatch):
+    """--neoantigen_only -g gpu (the GPU check passed over, so the device
+    engine runs on the CPU backend): no FASTAs, TSVs match the host cohort
+    run."""
+    import jax
+
+    from vcf2prot_tpu import cli
     from vcf2prot_tpu.cli import main
+
+    monkeypatch.setattr(cli, "require_gpu", lambda: jax.devices()[0])
 
     ref, samples = random_cohort(seed=9, n_samples=2, n_transcripts=6)
     vcf = tmp_path / "c.vcf"
@@ -332,7 +341,7 @@ def test_cli_neoantigen_only_end_to_end(tmp_path):
     out_host.mkdir()
     base = ["-f", str(vcf), "-r", str(fa), "--neoantigen_k", "9"]
     assert main(
-        base + ["-o", str(out_dev), "-g", "tpu", "--neoantigen_only"]
+        base + ["-o", str(out_dev), "-g", "gpu", "--neoantigen_only"]
     ) == 0
     assert not any(f.endswith(".fasta") for f in os.listdir(out_dev))
     assert main(

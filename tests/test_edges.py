@@ -43,11 +43,12 @@ def test_gzipped_inputs(tmp_path):
 
 
 def test_engine_aliases():
-    assert Engine.from_str("gpu") is Engine.TPU
-    assert Engine.from_str("TPU") is Engine.TPU
+    assert Engine.from_str("gpu") is Engine.DEVICE
+    assert Engine.from_str("GPU") is Engine.DEVICE
     assert Engine.from_str("auto") is Engine.AUTO
-    with pytest.raises(ValueError):
-        Engine.from_str("cuda")
+    for gone in ("cuda", "device"):
+        with pytest.raises(ValueError):
+            Engine.from_str(gone)
 
 
 def test_missing_header_is_error(tmp_path):

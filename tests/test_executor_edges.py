@@ -4,7 +4,7 @@ import numpy as np
 
 from vcf2prot_tpu.compiler.haplotype import HaplotypeProgram, RefBlob
 from vcf2prot_tpu.runtime.cpu_engine import execute_gather, execute_tasks
-from vcf2prot_tpu.runtime.tpu_engine import TpuEngine
+from vcf2prot_tpu.runtime.device_engine import DeviceEngine
 
 
 def mk_prog(tasks, alt, res_len, ann=()):
@@ -23,7 +23,7 @@ def assert_all_engines(prog, expected):
     assert serial.tobytes() == expected
     gather = execute_gather(prog, BLOB)
     np.testing.assert_array_equal(serial, gather)
-    dev = TpuEngine(BLOB)
+    dev = DeviceEngine(BLOB)
     outs = dev.execute([prog])
     np.testing.assert_array_equal(serial, outs[0])
 
@@ -57,7 +57,7 @@ def test_zero_length_between_tasks():
     assert_all_engines(prog, b"ABFG")
 
 
-# ---- word-aligned production kernel (runtime/tpu_engine.build_aligned_program)
+# ---- word-aligned production kernel (runtime/device_engine.build_aligned_program)
 # The gate is out_bucket >= 1024, so these cases pad the tape past it to
 # exercise the aligned path specifically (the small cases above take the
 # delta fallback). Every case is also checked with the fallback forced.
@@ -67,11 +67,11 @@ def assert_aligned_and_delta(prog, monkeypatch=None):
     import os
 
     serial = execute_tasks(prog, BLOB)
-    aligned = TpuEngine(BLOB).execute([prog])[0]
+    aligned = DeviceEngine(BLOB).execute([prog])[0]
     np.testing.assert_array_equal(serial, aligned)
     os.environ["VCF2PROT_ALIGNED_EXEC"] = "0"
     try:
-        delta = TpuEngine(BLOB).execute([prog])[0]
+        delta = DeviceEngine(BLOB).execute([prog])[0]
     finally:
         del os.environ["VCF2PROT_ALIGNED_EXEC"]
     np.testing.assert_array_equal(serial, delta)

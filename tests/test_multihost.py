@@ -60,8 +60,8 @@ def test_shard_partitions_native_decode_work(tmp_path):
     duplicated. Asserted on DETERMINISTIC native work counters (owned-
     carrier mask decodes, compiled haplotypes) instead of wall-clock
     ratios: the round-4 0.8x timing assertion raced co-tenant scheduling
-    on a ~30 ms stage and flaked under full-suite load (VERDICT r4 Weak
-    #1). Counters are exact: the two half-shards' decode work must
+    on a ~30 ms stage and flaked under full-suite load. Counters are
+    exact: the two half-shards' decode work must
     partition the full run's, and each half must do materially less than
     the whole."""
     from vcf2prot_tpu.compiler.haplotype import RefBlob

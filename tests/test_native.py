@@ -268,7 +268,7 @@ def test_empty_transcript_name_matches_python(tmp_path):
 
 def test_native_build_aligned_program_matches_numpy():
     """The native one-pass word-program builder must be array-equal to the
-    numpy oracle (runtime/tpu_engine.build_aligned_program's int64 body)
+    numpy oracle (runtime/device_engine.build_aligned_program's int64 body)
     on real packed cohorts, including zero-length/coincident tasks and the
     end-of-tape demotion rule."""
     import numpy as np
@@ -276,7 +276,7 @@ def test_native_build_aligned_program_matches_numpy():
     from test_device_resident import build_cohort
     from vcf2prot_tpu.native_bridge import load_native
     from vcf2prot_tpu.runtime.pack import pack_cohort, pad_to_bucket
-    from vcf2prot_tpu.runtime.tpu_engine import build_aligned_program
+    from vcf2prot_tpu.runtime.device_engine import build_aligned_program
 
     if load_native() is None or not hasattr(
         load_native(), "build_aligned_program"

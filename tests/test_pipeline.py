@@ -53,15 +53,15 @@ def run(cohort, tmp_path, engine, **kw):
 
 def test_engines_agree(cohort, tmp_path):
     res_st, out_st = run(cohort, tmp_path, Engine.ST)
-    res_tpu, out_tpu = run(cohort, tmp_path, Engine.TPU)
+    res_dev, out_dev = run(cohort, tmp_path, Engine.DEVICE)
     res_mt, out_mt = run(cohort, tmp_path, Engine.MT)
-    assert res_st.n_samples == res_tpu.n_samples == 6
+    assert res_st.n_samples == res_dev.n_samples == 6
     files = sorted(os.listdir(out_st))
-    assert files == sorted(os.listdir(out_tpu)) == sorted(os.listdir(out_mt))
+    assert files == sorted(os.listdir(out_dev)) == sorted(os.listdir(out_mt))
     assert len(files) == 6
     for f in files:
         a = (out_st / f).read_bytes()
-        b = (out_tpu / f).read_bytes()
+        b = (out_dev / f).read_bytes()
         c = (out_mt / f).read_bytes()
         assert a == b == c
 
@@ -147,8 +147,8 @@ def test_execute_programs_library_api(cohort):
         vcf_path, ref_seqs, blob, QcConfig()
     )
     st = execute_programs(programs, blob, Engine.ST)
-    tpu = execute_programs(programs, blob, Engine.TPU, validate_host=True)
-    for a, b in zip(st, tpu):
+    dev = execute_programs(programs, blob, Engine.DEVICE, validate_host=True)
+    for a, b in zip(st, dev):
         np.testing.assert_array_equal(a, b)
 
 
@@ -161,9 +161,47 @@ def test_profile_flag_writes_trace(cohort, tmp_path):
         vcf_path=vcf_path,
         fasta_path=fasta_path,
         outdir=str(outdir),
-        engine=Engine.TPU,
+        engine=Engine.DEVICE,
         profile_dir=str(trace_dir),
     )
     run_pipeline(cfg)
     assert trace_dir.is_dir()
     assert any(trace_dir.rglob("*"))
+
+
+def test_debug_gpu_passes_on_good_cohort(cohort, tmp_path):
+    """DEBUG_GPU: the device engine validates every chunk's task stream on
+    the device (CPU backend here) and a well-formed cohort runs through to
+    the same bytes as the host oracle."""
+    from vcf2prot_tpu.compiler.qc import QcConfig
+
+    _res, out_st = run(cohort, tmp_path, Engine.ST)
+    _res, out_dev = run(
+        cohort, tmp_path, Engine.DEVICE,
+        qc=QcConfig(debug_device_exec=True),
+    )
+    files = sorted(os.listdir(out_st))
+    assert files == sorted(os.listdir(out_dev))
+    for f in files:
+        assert (out_st / f).read_bytes() == (out_dev / f).read_bytes()
+
+
+def test_debug_gpu_raises_on_corrupted_cohort(cohort, tmp_path, monkeypatch):
+    """DEBUG_GPU: one corrupted task ``dst`` in the compiled cohort makes the
+    run raise instead of quietly isolating the program to the host oracle."""
+    from vcf2prot_tpu import native_bridge
+    from vcf2prot_tpu.compiler.qc import QcConfig
+
+    real = native_bridge.compile_cohort_native
+
+    def corrupted(*args, **kwargs):
+        probands, flat, *rest = real(*args, **kwargs)
+        prog = next(p for p in flat if p.n_tasks > 1)
+        prog.dst = prog.dst.copy()
+        prog.dst[1] += 3
+        return (probands, flat, *rest)
+
+    monkeypatch.setattr(native_bridge, "compile_cohort_native", corrupted)
+    with pytest.raises(AssertionError, match="validation failed"):
+        run(cohort, tmp_path, Engine.DEVICE,
+            qc=QcConfig(debug_cpu_exec=False, debug_device_exec=True))

@@ -47,7 +47,7 @@ def test_record_parity_with_reference_binary(seed, tmp_path):
             vcf_path=str(vcf),
             fasta_path=str(fasta),
             outdir=str(our_out),
-            engine=Engine.TPU,
+            engine=Engine.DEVICE,
         )
     )
 

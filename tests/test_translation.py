@@ -5,7 +5,7 @@ string, executes the Task program, and asserts the output sequence/length
 (reference: transcript_instructions.rs:884-1594,
 ``test_correct_translation_1`` .. ``_30``).
 
-Both host engines (serial task interpreter and the TPU gather formulation)
+Both host engines (serial task interpreter and the device gather formulation)
 are asserted to agree on every case.
 """
 import numpy as np

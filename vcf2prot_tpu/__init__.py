@@ -1,4 +1,4 @@
-"""vcf2prot_tpu: a TPU-native personalized-proteome engine.
+"""vcf2prot_tpu: a JAX/XLA personalized-proteome engine.
 
 Takes a reference proteome FASTA and a phased, bcftools/csq-annotated VCF and
 emits one FASTA per sample containing that sample's personalized proteome

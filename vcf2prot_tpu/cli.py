@@ -5,8 +5,11 @@ Flag-compatible with the reference CLI (reference: src/parts/cli.rs:104-172):
   -f/--vcf_file      phased, bcftools/csq-annotated VCF (required)
   -r/--fasta_ref     reference proteome FASTA (required)
   -o/--output_path   output directory (required)
-  -g/--engine        st | mt | tpu (gpu is accepted as an alias for tpu --
-                     this build supplies the accelerator the reference stubs)
+  -g/--engine        st | mt | gpu | auto: gpu is the device engine on an
+                     NVIDIA GPU and fails without one (this build supplies
+                     the accelerator the reference stubs); auto (the
+                     default) picks gpu when JAX's default backend is a GPU
+                     and mt otherwise
   -v/--verbose       stage timestamps
   -s/--stats         write the three statistics TSVs
   -i/--write_i_map   dump per-sample intermediate maps as JSON
@@ -22,7 +25,7 @@ import sys
 
 from .compiler.qc import default_qc
 from .pipeline import PipelineConfig, run_pipeline
-from .runtime.engine import Engine
+from .runtime.engine import Engine, NoGpuError, require_gpu
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -41,8 +44,9 @@ def build_parser() -> argparse.ArgumentParser:
         "--engine",
         default="auto",
         help=(
-            "execution engine: st, mt, tpu or auto (default auto; "
-            "gpu = tpu alias)"
+            "execution engine: st, mt, gpu or auto (default auto: gpu "
+            "when JAX's default backend is a GPU, else mt; gpu fails "
+            "without a GPU)"
         ),
     )
     p.add_argument("-v", "--verbose", action="store_true")
@@ -89,9 +93,9 @@ def build_parser() -> argparse.ArgumentParser:
         action="store_true",
         help=(
             "skip FASTA output; the run's product is the neoantigen TSVs. "
-            "With -g tpu/auto this keeps the whole chain (execute, masks, "
-            "scoring, top-k) device-resident -- only [samples, top] rows "
-            "cross the device->host link"
+            "With the device engine this keeps the whole chain (execute, "
+            "masks, scoring, top-k) device-resident -- only [samples, top] "
+            "rows leave the device"
         ),
     )
     p.add_argument(
@@ -140,6 +144,11 @@ def main(argv=None) -> int:
         engine = Engine.from_str(args.engine)
     except ValueError as err:
         sys.exit(str(err))
+    if engine is Engine.DEVICE:
+        try:
+            require_gpu()
+        except NoGpuError as err:
+            sys.exit(f"error: {err}")
     cfg = PipelineConfig(
         vcf_path=args.vcf_file,
         fasta_path=args.fasta_ref,
@@ -174,6 +183,8 @@ def main(argv=None) -> int:
             f"{result.n_haplotype_seqs} haplotype sequences, "
             f"{result.total_output_bytes} output residues"
         )
+        if args.neoantigen_only:
+            print(f"Host-fallback neoantigen chunks: {result.neo_host_chunks}")
     return 0
 
 

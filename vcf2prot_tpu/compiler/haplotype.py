@@ -3,7 +3,7 @@ into a single flat program over shared tapes.
 
 Mirrors the base-offset re-indexing of the reference assembler (reference:
 src/data_structures/InternalRep/haplotype_instruction.rs:75-158) with one
-deliberate TPU-first change: reference-stream tasks are re-indexed against a
+deliberate device-first change: reference-stream tasks are re-indexed against a
 single shared proteome blob (one copy in HBM for the whole cohort) instead of
 per-sample concatenated copies of the protein strings. The executed output is
 byte-identical; only the source of exe==0 copies differs.

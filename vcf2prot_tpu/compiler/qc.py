@@ -17,7 +17,7 @@ honored here so existing automation keeps working:
 * ``RUN_SELECTED_TEST`` -- only explicitly-set flags are honored
 
 These invariants (contiguity, exact output size, non-overlap) are exactly the
-preconditions the TPU executor's searchsorted/gather formulation relies on, so
+preconditions the device executor's searchsorted/gather formulation relies on, so
 keeping them as debug-mode assertions guards the device path too.
 """
 from __future__ import annotations
@@ -34,7 +34,7 @@ class QcConfig:
     panic_inspect_err: bool = True
     debug_txp: str = ""
     # device-side task-stream validation before execution (the reference's
-    # DEBUG_GPU check of the GPU input arrays, realized as a Pallas kernel)
+    # DEBUG_GPU check of the GPU input arrays, runtime/kernels.py)
     debug_device_exec: bool = False
 
 

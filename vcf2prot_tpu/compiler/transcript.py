@@ -229,7 +229,7 @@ def get_g_rep(t: TranscriptInstruction, qc: QcConfig = None) -> TranscriptProgra
     # Some opcodes leave the result tape under-covered (e.g. 'P' with a
     # non-'*'-terminated reference side); the reference exposes its '.'
     # prefill there (gir res_array initialization). Emit an explicit filler
-    # copy so the program tiles the tape exactly -- required by the TPU
+    # copy so the program tiles the tape exactly -- required by the device
     # executor's gather formulation and byte-identical to the reference.
     coverage = tasks[-1].dst + tasks[-1].length if tasks else 0
     if coverage < res_len:

@@ -1,13 +1,13 @@
 """Cohort-batched neoantigen scoring: one device batch across all samples.
 
 The per-sample report path (``report.py``) scores each sample's candidate
-windows on host. On TPU the production shape is one batch: every sample's
-mutation-overlapping k-mers concatenate into a single [M, k] tensor, pad to a
-power-of-two bucket (bounded recompiles, static shapes), and run through the
-bf16 MXU scoring head in one jitted call -- the MXU wants large batched
-matmuls, not per-sample slivers (reference analogue: the per-sample loop at
-automation_scripts level; there is no batched scorer to mirror, this is
-net-new TPU capability).
+windows on host. On the device the production shape is one batch: every
+sample's mutation-overlapping k-mers concatenate into a single [M, k] tensor,
+pad to a power-of-two bucket (bounded recompiles, static shapes), and run
+through the bf16 scoring head in one jitted call -- matrix units want large
+batched matmuls, not per-sample slivers (reference analogue: the per-sample
+loop at automation_scripts level; there is no batched scorer to mirror, this
+is net-new capability).
 
 Candidate *collection* stays on host (it reads the task program's alt spans,
 which are host-resident), so memory is bounded by the number of candidate
@@ -204,7 +204,7 @@ def write_cohort_neoantigen_reports(outdir, proband_names, progs, tapes,
 
     Same TSV schema and per-sample top-``top`` selection; the only difference
     is where the scores are computed (one device batch vs per-sample host
-    math, bf16 MXU vs fp32 host).
+    math, bf16 device vs fp32 host).
     """
     return write_reports_from_candidates(
         outdir, proband_names, progs, collect_candidates(progs, tapes, k),

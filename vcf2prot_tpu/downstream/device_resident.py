@@ -1,27 +1,24 @@
 """Fully device-resident neoantigen pipeline: tapes never leave HBM.
 
-The FASTA path must move every output byte to host disk, so on a slow
-device->host link the host tier wins end-to-end (ARCHITECTURE 2.6). The
-neoantigen workload is different: its *output* is per-sample top-k peptide
-rows, a few hundred KB per cohort. This module keeps the whole compute chain
-on device --
+The FASTA path must move every output byte to host disk. The neoantigen
+workload is different: its *output* is per-sample top-k peptide rows, a few
+hundred KB per cohort. This module keeps the whole compute chain on device --
 
-    execute (gather)  ->  alt/validity masks  ->  dense bf16 MXU scoring
+    execute (gather)  ->  alt/validity masks  ->  dense bf16 matmul scoring
     ->  per-sample top-k
 
 -- and fetches only ``[S, top]`` scores/positions plus ``[S, top, k]`` peptide
-bytes, so the slow link stops being the bottleneck and the TPU becomes
-load-bearing end-to-end (the accelerator role the reference stubs at
-src/data_structures/InternalRep/gir.rs:283-299).
+bytes, so the accelerator is load-bearing end-to-end (the role the
+reference stubs at src/data_structures/InternalRep/gir.rs:283-299).
 
 The kernel design is GATHER-FREE except the one unavoidable execute gather
-and the tiny [S, top, k] result fetch. On the real chip (measured,
-ARCHITECTURE 2.3), vectorized binary search costs ~225 ns/query (33.6M-query
-``searchsorted``: 7.6 s) and large random gathers ~30-45 ns/lane, while
-scatter-adds at TASK granularity (~500k updates), 32M cumsums (~16 ms) and
-even 32M multi-operand sorts (~150 ms) are cheap. So every per-task ->
-per-byte mapping uses delta-scatter + cumsum ("segment expansion"), never
-per-byte binary search:
+and the tiny [S, top, k] result fetch: XLA lowers a vectorized binary search
+to log2(n) serialized gather rounds and large random gathers are costly,
+while scatter-adds at TASK granularity, cumsums and multi-operand sorts are
+cheap. (That balance was measured on another accelerator and is not yet
+measured on the H100.) So every per-task -> per-byte mapping uses
+delta-scatter + cumsum ("segment expansion"), never per-byte binary
+search:
 
 * ``expand_delta``: tape[j] = vals[t(j)] for the task/span t covering byte j,
   computed by scattering first-difference deltas at segment starts and
@@ -37,23 +34,20 @@ per-byte binary search:
   j is valid iff j+k <= span_end[j] (spans tile the tape).
 * mutated-window range query: prefix-sum the alt mask once; the in-window
   count is a SHIFTED-SLICE difference (pad + slice), not an indexed gather.
-* the whole dense pass is TILED (round 5): one ``lax.map`` streams the tape
-  in ``blk``-lane tiles, each rebuilding its expansions from a sliced task
+* the whole dense pass is TILED: one ``lax.map`` streams the tape in
+  ``blk``-lane tiles, each rebuilding its expansions from a sliced task
   range (host-computed slice table) + precomputed carries and scoring its
   windows immediately -- nothing of size ``[out, k]`` or full-length int32
-  is materialized, so cost stays linear in chunk size (measured 0.95-1.00x
-  deviation from linear across 2^25-2^28 lanes,
-  automation_scripts/artifacts/dense_scaling_sweep.tsv).
+  is materialized, so cost stays linear in chunk size.
 * scaffold-width heads score ALL tape positions (invalid windows -> NEG; no
   data-dependent host sync, no per-chunk shape recompiles); WIDE heads take
   the compacted path (:func:`_compact_core`): candidates to the front of a
   1-key position sort, a static host-bounded candidate bucket scored via a
   4-word-aligned window gather. The folded one-hot head
-  (scoring.score_windows) makes scoring one big MXU matmul per tile.
-* per-sample top-k: SEGMENTED (round 5): per-block stable sorts + per-
-  (block, sample) top-``top`` pruning + a small global sort
-  (:func:`_rank_segmented`; 1.4-2.0x the global sort, sub-linear scaling),
-  falling back to one stable lexicographic sort by (sample_id asc, score
+  (scoring.score_windows) makes scoring one big matmul per tile.
+* per-sample top-k: SEGMENTED: per-block stable sorts + per-(block,
+  sample) top-``top`` pruning + a small global sort
+  (:func:`_rank_segmented`), falling back to one stable lexicographic sort by (sample_id asc, score
   desc) for small buckets. Ties keep ascending tape position in both
   paths, matching the host path's stable argsort tie order.
 """
@@ -75,8 +69,10 @@ NEG = np.float32(-np.inf)
 def dense_blk(out_bucket: int, params: dict) -> int:
     """lax.map tile size for the dense pass, scaled so the widest fp32
     hidden activation [blk, H] stays ~256 MB regardless of head width
-    (wide heads at the round-3 fixed 1<<19 block would materialize
-    multi-GB intermediates). VCF2PROT_DENSE_BLK caps it for tuning."""
+    (wide heads at a fixed 1<<19 block would materialize multi-GB
+    intermediates). The 256 MB target was tuned on another accelerator and
+    is not yet measured on the H100. VCF2PROT_DENSE_BLK caps it for
+    tuning."""
     import os
 
     env = os.environ.get("VCF2PROT_DENSE_BLK")
@@ -99,8 +95,7 @@ def _expand_delta(jnp, vals, starts, out_len):
 
     Matches ``searchsorted(starts, j, 'right') - 1`` exactly (coincident
     starts telescope so the last segment wins) at segment-count scatter cost
-    instead of per-byte binary search -- the measured difference on the real
-    chip is ~25x (ARCHITECTURE 2.3). Out-of-range starts (bucket padding)
+    instead of per-byte binary search. Out-of-range starts (bucket padding)
     are dropped.
     """
     v = vals.astype(jnp.int32)
@@ -148,23 +143,22 @@ def _dense_core(combined, dst, srcb, exe, ann_starts, ann_ends, params,
                 m_w: int = 0, m_b: int = 0, score: bool = True):
     """Execute + masks + dense scoring over one chunk, all static-shaped.
 
-    Scores EVERY tape position (invalid windows -> NEG): scoring the ~10x
-    extra windows on the MXU is cheaper than compacting candidates first
-    (compaction needs either per-byte binary search or a 32M-lane scatter,
-    both measured slow on TPU), and it removes the only data-dependent host
+    Scores EVERY tape position (invalid windows -> NEG): at scaffold width,
+    scoring the ~10x extra windows as one matmul was cheaper than
+    compacting candidates first on the accelerator this was tuned on (not
+    yet measured on the H100), and it removes the only data-dependent host
     sync plus the candidate-count shape bucket. Pure jax; shared by the
     single-device jit (:func:`_dense_fn`) and the dp-sharded chain
     (parallel/sharded_neoantigen.py).
 
-    TILED (round 5): the whole pass streams the tape in ``blk``-lane tiles
-    inside one ``lax.map`` -- each tile rebuilds its expansions locally
-    (scatter the task deltas whose starts fall in the tile, add the
-    precomputed carry from :func:`_tile_deltas`, cumsum ``blk + k - 1``
-    lanes) and scores its windows immediately. Nothing of size
-    ``[out, k]`` or full-length int32 is ever materialized, only the
-    ``tape/cand/scores`` outputs (6 B/lane), so dense cost stays ~linear
-    in chunk size instead of degrading ~2x from 2^25 to 2^28 lanes under
-    HBM working-set pressure (the round-4 measured scaling, BACKLOG #2a).
+    TILED: the whole pass streams the tape in ``blk``-lane tiles inside
+    one ``lax.map`` -- each tile rebuilds its expansions locally (scatter
+    the task deltas whose starts fall in the tile, add the precomputed
+    carry from :func:`_tile_deltas`, cumsum ``blk + k - 1`` lanes) and
+    scores its windows immediately. Nothing of size ``[out, k]`` or
+    full-length int32 is ever materialized, only the ``tape/cand/scores``
+    outputs (6 B/lane), so dense cost stays ~linear in chunk size instead
+    of growing with the HBM working set.
     Tiles overlap by ``k - 1`` lanes so every window is formed from
     statically-sliced local bytes; overlap lanes past the last real byte
     gather junk, but any window reading them fails ``j + k <= total_res``
@@ -183,7 +177,7 @@ def _dense_core(combined, dst, srcb, exe, ann_starts, ann_ends, params,
         # word-aligned execute (the FASTA executor's aligned32 formulation,
         # tiled): word-granularity delta expansion + two aligned u32 loads
         # per output word + a small per-tile boundary-byte fix-up -- ~2x
-        # fewer gather lanes than the per-byte execute (tpu_engine.py,
+        # fewer gather lanes than the per-byte execute (device_engine.py,
         # build_aligned_program)
         wstart, wbase, bpos, bsrc, wtile_lo, btile_lo = aligned
         blk_w = blk // 4
@@ -272,9 +266,8 @@ def _pack_rows(jnp, vals, gpos, wins):
     """Bitcast-pack (scores f32[..., top], positions i32[..., top], peptide
     bytes u8[..., top, k]) into ONE u8[..., top, 8+k] buffer.
 
-    Every device->host fetch costs a full link round trip (~0.5-5 s on the
-    forwarded link, CLAUDE.md) regardless of size; one packed buffer per
-    chunk replaces three fetches. Unpacked by :func:`_unpack_rows`.
+    One packed buffer per chunk makes one device->host fetch instead of
+    three. Unpacked by :func:`_unpack_rows`.
     """
     import jax
 
@@ -314,9 +307,9 @@ def _decode_rows(vals, gpos, wins, seg_start: int, hap1_len: int):
 
 def rank_blk(out_bucket: int) -> int:
     """Block size for the segmented rank sort (power of two, divides the
-    power-of-two ``out_bucket``); env-tunable for measurement. Default
-    2^16 per the round-5 device sweep at 2^27 lanes (543/412/370/386 ms
-    for 2^14/2^15/2^16/2^17)."""
+    power-of-two ``out_bucket``); env-tunable for measurement. The 2^16
+    default was swept on another accelerator at 2^27 lanes and is not yet
+    measured on the H100."""
     import os
 
     b = int(os.environ.get("VCF2PROT_RANK_BLK", str(1 << 16)))
@@ -485,7 +478,9 @@ def use_compact(params: dict, k: int, out_bucket: int,
     wide enough that scoring all ~out/C extra windows costs more than the
     compaction sort + window gather, and the candidate bound is actually a
     small fraction of the tape. The aligned 4-word window extraction needs
-    k <= 13. VCF2PROT_COMPACT=1 forces on (tests), =0 off, default auto."""
+    k <= 13. The 2e5 FLOP-per-window threshold was tuned on another
+    accelerator and is not yet measured on the H100. VCF2PROT_COMPACT=1
+    forces on (tests), =0 off, default auto."""
     import os
 
     from ..utils.roofline import scoring_flops_per_window
@@ -507,8 +502,8 @@ def _compact_core(combined, dst, srcb, exe, ann_starts, ann_ends,
     """Compacted chain: mask-only tiled pass, candidates to the front of a
     1-key sort, score ONLY the static candidate bucket, rank over it.
 
-    The dense pass scores ~11x more windows than the candidate set
-    (ARCHITECTURE 2.6); at wide heads those FLOPs dominate, so this path
+    The dense pass scores ~11x more windows than the candidate set on the
+    synthetic cohorts; at wide heads those FLOPs dominate, so this path
     pays one cheap single-operand sort (ascending position key; candidates
     keyed ``j``, others ``j + out_bucket``) plus a 4-word-aligned window
     gather (4 u32 lanes per window, byte offset resolved by a 4-way
@@ -695,13 +690,12 @@ def _chunk_annotation_spans(programs, spans):
 class Buckets(NamedTuple):
     """Static device shapes for one run.
 
-    Every jitted call retraces (and on this environment's remote XLA pays a
-    1-5 MINUTE compile) per distinct input-shape tuple, so a multi-chunk
-    cohort must not present per-chunk residual shapes. The driver computes
-    one Buckets over ALL chunks (max per axis, power-of-two padded) and every
-    chunk runs at those shapes -- at most one compile per jitted function per
-    run. Scoring a padded tail costs ~ms of MXU time; a second compile costs
-    minutes.
+    Every jitted call retraces and compiles per distinct input-shape
+    tuple, so a multi-chunk cohort must not present per-chunk residual
+    shapes. The driver computes one Buckets over ALL chunks (max per axis,
+    power-of-two padded) and every chunk runs at those shapes -- at most
+    one compile per jitted function per run, at the price of scoring the
+    padded tail.
     """
 
     out: int      # result-tape lanes
@@ -748,37 +742,17 @@ def _chunk_concat_starts(progs):
     )
 
 
-def use_aligned_dense(out_bucket: int, combined_len: int,
-                      task_bucket: int = 0) -> bool:
-    """Gate for the word-aligned execute inside the tiled dense pass.
-
-    Shares the FASTA executor's preconditions (use_aligned_exec), then
-    weighs the path's EXTRA host->device traffic (the word program:
-    ws/wb at 8 B/task plus bp/bs at ~out/2 bytes for the ~5% boundary
-    list) against its measured kernel saving (~3.2 ns/lane,
-    dense_scaling_sweep.tsv) at the probed upload bandwidth
-    (engine.h2d_rate). On a PCIe TPU host the upload is trivial and the
-    aligned path always wins; on this environment's forwarded link the
-    gate tracks the weather -- measured round 5: with H2D degraded to
-    ~20 MB/s the aligned north-star leg ran 72 s vs 27 s for the byte
-    path purely on upload time. VCF2PROT_ALIGNED_DENSE=1 forces on, =0
-    off, default auto."""
+def use_aligned_dense(out_bucket: int, combined_len: int) -> bool:
+    """Gate for the word-aligned execute inside the tiled dense pass: the
+    FASTA executor's preconditions (use_aligned_exec).
+    VCF2PROT_ALIGNED_DENSE=0 turns it off."""
     import os
 
-    from ..runtime.tpu_engine import use_aligned_exec
+    from ..runtime.device_engine import use_aligned_exec
 
-    env = os.environ.get("VCF2PROT_ALIGNED_DENSE", "auto")
-    if env == "0" or not use_aligned_exec(np.int32, out_bucket,
-                                          combined_len):
-        return False
-    if env == "1":
-        return True
-    from ..runtime.engine import h2d_rate
-
-    bw = h2d_rate()
-    extra_bytes = 8.0 * (task_bucket or out_bucket // 8) + out_bucket / 2
-    saved_s = 3.2e-9 * out_bucket
-    return extra_bytes / max(bw, 1.0) < saved_s
+    return os.environ.get("VCF2PROT_ALIGNED_DENSE", "1") != "0" and (
+        use_aligned_exec(np.int32, out_bucket, combined_len)
+    )
 
 
 def aligned_dense_inputs(dst, src_biased, total_res: int, combined_len: int,
@@ -786,7 +760,7 @@ def aligned_dense_inputs(dst, src_biased, total_res: int, combined_len: int,
     """Host-side aligned-execute inputs for one chunk: the word program
     (build_aligned_program) plus per-tile slice tables and caps. Returns
     ``(ws, wb, bp, bs, wlo, blo, m_w, m_b)`` with unpadded arrays."""
-    from ..runtime.tpu_engine import build_aligned_program
+    from ..runtime.device_engine import build_aligned_program
 
     ws, wb, bp, bs = build_aligned_program(
         dst, src_biased, total_res, combined_len
@@ -842,7 +816,7 @@ def run_buckets(programs, chunks, k: int = 9, params=None,
             len(blob.data) + pad_to_bucket(alt) if blob is not None else 0
         )
         fold_aligned = blob is not None and use_aligned_dense(
-            out_b, combined_len, pad_to_bucket(tasks)
+            out_b, combined_len
         )
         if fold_aligned:
             from ..runtime.pack import pack_cohort
@@ -909,10 +883,10 @@ class DeviceNeoantigenEngine:
 
     ``dispatch``/``collect`` split that into an async launch and a blocking
     fetch so a multi-chunk driver can keep chunk N+1's dense+rank computing
-    on device while chunk N's ``[S, top]`` rows cross the (slow) host link --
+    on device while chunk N's ``[S, top]`` rows are fetched and written --
     the analogue of the reference keeping every worker busy end-to-end
     (reference: src/parts/exec.rs:36-39) and of the FASTA executor's
-    dispatch/collect (runtime/tpu_engine.py).
+    dispatch/collect (runtime/device_engine.py).
     """
 
     def __init__(self, blob: RefBlob, k: int, params=None, top: int = 200,
@@ -1043,8 +1017,7 @@ class DeviceNeoantigenEngine:
                 put(ann_e), put(st), self.params, total_res, put(tl),
                 put(al),
             )
-        elif use_aligned_dense(out_bucket, int(combined.shape[0]),
-                               task_bucket):
+        elif use_aligned_dense(out_bucket, int(combined.shape[0])):
             # word-aligned execute inside the tiled dense pass: the word
             # program + its per-tile slice tables ride extra inputs
             ws, wb, bp, bs, wlo, blo, mw, mb = aligned_dense_inputs(
@@ -1123,8 +1096,9 @@ def write_device_neoantigen_reports(outdir, proband_names, programs, blob,
     Same TSV schema and ranking as the host-batched path
     (cohort.write_reports_from_candidates); chunks that cannot run on device
     (malformed pack, non-tiling annotations) fall back to host collection +
-    the batched scorer so output coverage is never lost. ``mesh`` switches
-    to the dp-sharded multi-chip chain (parallel/sharded_neoantigen.py).
+    the batched scorer so output coverage is never lost, and are counted.
+    ``mesh`` switches to the dp-sharded multi-device chain
+    (parallel/sharded_neoantigen.py). Returns ``(paths, host_chunks)``.
     """
     import os
 
@@ -1133,8 +1107,8 @@ def write_device_neoantigen_reports(outdir, proband_names, programs, blob,
     if params is None:
         params = init_params(k)
     chunks = _chunk_indices(programs, chunk_res_bytes, pair_aligned=True)
-    # one Buckets across all chunks => at most one (multi-minute remote)
-    # compile per jitted function per run, residual chunks included
+    # one Buckets across all chunks => at most one compile per jitted
+    # function per run, residual chunks included
     if mesh is not None:
         from ..parallel.sharded_neoantigen import (
             ShardedNeoantigenEngine,
@@ -1150,9 +1124,12 @@ def write_device_neoantigen_reports(outdir, proband_names, programs, blob,
         buckets = run_buckets(programs, chunks, k=k, params=params,
                               blob=blob)
     paths = []
+    host_chunks = 0
 
     def write_rows(chunk, progs, rows):
+        nonlocal host_chunks
         if rows is None:  # "host" handle: run the fallback chain
+            host_chunks += 1
             rows = _host_chunk_rows(progs, blob, k, params, top)
         for local_i, sample_rows in rows.items():
             sample_idx = chunk[2 * local_i] // 2
@@ -1176,8 +1153,7 @@ def write_device_neoantigen_reports(outdir, proband_names, programs, blob,
 
     # double-buffered drive: dispatch chunk N+1 BEFORE collecting chunk N,
     # so the device computes the next chunk while the previous chunk's
-    # [S, top] rows cross the host link and its TSVs hit disk (the fetch +
-    # write leg costs ~0.5-5 s of link round trip here; overlap hides it)
+    # [S, top] rows are fetched and its TSVs hit disk
     pending = None
     for chunk in chunks:
         progs = [programs[i] for i in chunk]
@@ -1187,7 +1163,14 @@ def write_device_neoantigen_reports(outdir, proband_names, programs, blob,
         pending = (chunk, progs, handle)
     if pending is not None:
         write_rows(pending[0], pending[1], eng.collect(pending[2]))
-    return paths
+    return NeoReports(paths, host_chunks)
+
+
+class NeoReports(NamedTuple):
+    """What :func:`write_device_neoantigen_reports` wrote."""
+
+    paths: list       # one TSV per sample
+    host_chunks: int  # chunks that ran the host fallback chain
 
 
 def _host_chunk_rows(progs, blob, k, params, top):

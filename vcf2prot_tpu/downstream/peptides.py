@@ -4,9 +4,9 @@ Personalized proteomes exist to feed immunopeptidomics pipelines: enumerate
 candidate MHC-presented peptides (k-mers, typically 8-11 residues) over each
 personalized protein and rank the *neoantigen candidates* -- the peptides that
 overlap a mutated residue. The reference stops at FASTA files on disk; this
-module is why the TPU execution path is load-bearing: the executed haplotype
-tape never leaves HBM, and the window tensors it produces are shaped for an
-MXU-based peptide model (one-hot @ embedding).
+module is why the device execution path is load-bearing: the executed
+haplotype tape never leaves HBM, and the window tensors it produces are
+shaped for a matmul-based peptide model (one-hot @ embedding).
 
 All functions are jit-compatible with static shapes:
 
@@ -16,7 +16,7 @@ All functions are jit-compatible with static shapes:
   (the neoantigen-candidate filter), computed from the task program itself
   via a prefix sum -- no re-alignment against the reference needed;
 * ``encode_windows``           -- uint8 residues -> one-hot bf16, ready for
-  ``windows_onehot @ embedding`` on the MXU.
+  ``windows_onehot @ embedding`` as one matmul.
 """
 from __future__ import annotations
 
@@ -113,14 +113,13 @@ def mutated_window_mask(alt_mask: np.ndarray, starts: np.ndarray, k: int):
 
 
 def encode_windows(windows):
-    """uint8 residue windows -> one-hot bfloat16 [m, k, 21] for MXU matmuls.
+    """uint8 residue windows -> one-hot bfloat16 [m, k, 21] for matmuls.
 
     GATHER-FREE: the residue id is found by comparing each byte against the
     20 alphabet constants (one vectorized equality per class, 'other' = no
-    match) instead of a 256-entry LUT take -- per-element gathers cost
-    ~8 ns/lane on real TPU hardware (ARCHITECTURE 2.3), which made the LUT
-    lookup the dominant cost of the whole scoring chain (~580 ms of a
-    ~795 ms dense pass at 8M windows). Bit-identical to
+    match) instead of a 256-entry LUT take -- on the accelerator this was
+    tuned on, the per-element LUT gather was the dominant cost of the whole
+    scoring chain (not yet measured on the H100). Bit-identical to
     one_hot(lut[windows]): ALPHABET bytes are distinct, so exactly one
     class column (or 'other') is 1.
     """

@@ -2,7 +2,7 @@
 
 Opt-in pipeline stage (CLI ``--neoantigen_k K``): after execution, every
 haplotype tape is scanned for mutation-overlapping k-mers, scored with the
-bf16 MXU head (untrained scaffold weights unless the caller supplies real
+bf16 head (untrained scaffold weights unless the caller supplies real
 ones), and written as ``<proband>.neoantigens.tsv`` with columns
 ``peptide  haplotype  transcript  protein_start  score``.
 """

@@ -1,13 +1,13 @@
-"""Peptide scoring head: an MXU-shaped model scaffold over peptide windows.
+"""Peptide scoring head: a matmul-shaped model scaffold over peptide windows.
 
 A production-shaped architecture for ranking neoantigen candidate peptides:
 one-hot residues -> per-position embedding -> flatten -> a configurable
 dense(relu) stack -> dense(1). Width (``embed_dim``, ``hidden``) and depth
 are free parameters of ``init_params``; the default is a lightweight
-scaffold, and ARCHITECTURE 2.6 sweeps realistic widths on the real chip.
-Everything is bf16 on the MXU with fp32 accumulation
-(``preferred_element_type``), jit-compiled, and batched over windows -- the
-shape a real MHC-presentation predictor takes on TPU.
+scaffold; wider heads (e.g. 512x3) take the compacted device path.
+Everything is bf16 with fp32 accumulation (``preferred_element_type``),
+jit-compiled, and batched over windows -- the shape a real
+MHC-presentation predictor takes on an accelerator.
 
 The default parameters are deterministic random initialization: this is an
 architecture scaffold to load trained weights into (``params`` is a plain
@@ -119,13 +119,13 @@ def load_params(path: str, k: int) -> dict:
 def score_windows(windows, params: dict):
     """Score uint8 residue windows [m, k]; returns fp32 scores [m].
 
-    jit-compatible; all matmuls run bf16 on the MXU with fp32 accumulation.
+    jit-compatible; all matmuls run bf16 with fp32 accumulation.
     The per-position embedding is FOLDED into the first dense layer: since
     both are linear, ``concat_i(onehot_i @ embed) @ w1`` equals
     ``onehot2 @ W`` with ``W[i*V:(i+1)*V] = embed @ w1[i*E:(i+1)*E]``. That
     turns the batch-dominant work into one [m, k*V] @ [k*V, H] matmul with a
-    contraction axis the MXU can tile (k*V = 225 for 9-mers), instead of a
-    k*V=25-deep einsum the systolic array underutilizes; the fold itself is
+    contraction axis the matrix units can tile (k*V = 225 for 9-mers),
+    instead of a 25-deep einsum that underuses them; the fold itself is
     a tiny [V, E] x [k, E, H] contraction computed once per call in fp32.
     """
     import jax
@@ -135,14 +135,16 @@ def score_windows(windows, params: dict):
 
     m, k = windows.shape
     names = layer_names(params)
-    # gather-free one-hot (see encode_windows: a LUT take costs ~8 ns/lane
-    # on TPU and dominated the whole chain)
+    # gather-free one-hot (see encode_windows)
     onehot = encode_windows(windows).reshape(m, k * VOCAB)
     embed = jnp.asarray(params["embed"], jnp.float32)
     w1 = jnp.asarray(params[names[0]], jnp.float32)
     hidden = w1.shape[1]
+    # HIGHEST: a GPU would otherwise run this fp32 contraction in TF32;
+    # it is tiny, so full precision costs nothing
     folded = jnp.einsum(
-        "ve,keh->kvh", embed, w1.reshape(k, embed.shape[1], hidden)
+        "ve,keh->kvh", embed, w1.reshape(k, embed.shape[1], hidden),
+        precision=jax.lax.Precision.HIGHEST,
     ).reshape(k * VOCAB, hidden).astype(jnp.bfloat16)
     h = jnp.dot(onehot, folded, preferred_element_type=jnp.float32)
     h = jax.nn.relu(h + jnp.asarray(params["b1"]))

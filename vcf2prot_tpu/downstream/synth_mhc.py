@@ -13,8 +13,8 @@ are binder/non-binder at a score quantile with label noise.
 This gives the configurable head (scoring.init_params width/depth) a
 benchmark where DEPTH measurably matters: a linear/PWM-equivalent model
 tops out below the epistatic ceiling, a deeper MLP recovers it
-(tests/test_train.py pins the ordering; the committed artifact sweeps it
-on the real chip).
+(tests/test_train.py pins the ordering;
+automation_scripts/train_synth_mhc.py sweeps it on the device).
 """
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 per-sample haplotype decode.
 
 Capability parity with the reference frontend (reference: src/readers.rs:22-283
-and src/data_structures/vcf_ds.rs:67-329) with a TPU-host-friendly design:
+and src/data_structures/vcf_ds.rs:67-329) with a accelerator-host-friendly design:
 
 * the file is streamed line-by-line (the reference loads the whole file into a
   single String; readers.rs:119-139),

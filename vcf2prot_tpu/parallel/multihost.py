@@ -2,7 +2,7 @@
 
 The reference's only "multi-node" story is a Python process pool running one
 binary per sample batch (reference: automation_scripts/parallization_python.py
-:196-207). The TPU-native design runs ONE logical program across hosts:
+:196-207). The device-native design runs ONE logical program across hosts:
 
 * ``jax.distributed.initialize`` brings up the multi-host runtime;
 * the global mesh spans every chip in the slice on a single ``dp`` axis;
@@ -32,8 +32,10 @@ def initialize_distributed(coordinator_address: str = None,
                            process_id: int = None) -> None:
     """Bring up the JAX multi-host runtime (no-op if already initialized).
 
-    Arguments default to the standard JAX_* / cloud-TPU environment
-    discovery. Call once per host before building the mesh.
+    Arguments left as None fall to ``jax.distributed.initialize``'s own
+    discovery, which needs a cluster environment it recognizes; on a plain
+    GPU host pass ``coordinator_address``, ``num_processes`` and
+    ``process_id``. Call once per host before building the mesh.
     """
     import jax
 

@@ -32,10 +32,9 @@ def _sharded_runner(mesh, out_bucket: int, shared_alt: bool,
     ``shared_alt``: the cohort alt tape is a run-wide shared pool --
     replicated like the proteome blob (every chip reads it with local
     gathers) instead of carrying a per-shard alt tape. ``aligned`` runs the
-    production word-aligned kernel (runtime/tpu_engine.aligned_execute_body,
-    1.34x the per-byte delta kernel on the real chip) over per-shard
-    word programs; False keeps the per-byte delta formulation (int64 packs,
-    tiny tapes, env opt-out).
+    default word-aligned kernel (runtime/device_engine.aligned_execute_body)
+    over per-shard word programs; False keeps the per-byte delta
+    formulation (int64 packs, tiny tapes, env opt-out).
     """
     import jax
     import jax.numpy as jnp
@@ -51,7 +50,7 @@ def _sharded_runner(mesh, out_bucket: int, shared_alt: bool,
         return _FN_CACHE[key]
 
     if aligned:
-        from ..runtime.tpu_engine import aligned_execute_body
+        from ..runtime.device_engine import aligned_execute_body
 
         def per_shard(blob, alt, wstart, wbase, bpos, bsrc):
             combined = jnp.concatenate(
@@ -73,7 +72,7 @@ def _sharded_runner(mesh, out_bucket: int, shared_alt: bool,
                 [blob, alt if shared_alt else alt[0]]
             )
             # covering-task expansion by delta-scatter + cumsum (see
-            # runtime/tpu_engine.py); padding tasks carry dst = iinfo.max
+            # runtime/device_engine.py); padding tasks carry dst = iinfo.max
             # -> dropped
             v = srcb[0] - dst[0]
             delta = v - jnp.concatenate([jnp.zeros(1, v.dtype), v[:-1]])
@@ -173,11 +172,11 @@ class ShardedEngine:
             for d, p in enumerate(packed):
                 alt[d, : len(p.alt)] = p.alt
             alt_len = alt_bucket
-        from ..runtime.tpu_engine import use_aligned_exec
+        from ..runtime.device_engine import use_aligned_exec
 
         if use_aligned_exec(idx_dtype, out_bucket,
                             len(self.blob.data) + alt_len):
-            from ..runtime.tpu_engine import (
+            from ..runtime.device_engine import (
                 build_aligned_program,
                 pad_aligned_program,
             )

@@ -9,7 +9,7 @@ a ``dp`` mesh the same way the FASTA executor scales (parallel/sharded.py):
 * the reference-proteome blob (and a run-wide shared alt pool, when the
   cohort compiled pooled) is **replicated**; per-shard task/annotation/alt
   tensors are **sharded** on ``dp``;
-* one ``shard_map``-jitted program runs execute -> masks -> bf16 MXU scoring
+* one ``shard_map``-jitted program runs execute -> masks -> bf16 matmul scoring
   -> stable-sort ranking on every chip, and only ``[D, samples, top]`` score
   rows plus peptide bytes leave the devices.
 
@@ -119,8 +119,7 @@ def shard_buckets(programs, chunks, n_shards: int, k: int = 9,
                 pad_to_bucket(max(alt, 1)) if not pooled
                 else pad_to_bucket(max(len(programs[0].alt), 1))
             )
-            if use_aligned_dense(out_b, combined_len,
-                                 pad_to_bucket(tasks)):
+            if use_aligned_dense(out_b, combined_len):
                 for sp in shard_progs_all:
                     packed = pack_cohort(sp, blob)
                     if (not packed.contiguous
@@ -333,7 +332,7 @@ class ShardedNeoantigenEngine:
             alt.shape[0] if shared_alt else alt.shape[1]
         )
         aligned = (not compact) and use_aligned_dense(
-            buckets.out, combined_len, buckets.tasks
+            buckets.out, combined_len
         )
         if aligned:
             m_w, m_b = buckets.m_w, buckets.m_b

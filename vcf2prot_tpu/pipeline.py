@@ -3,7 +3,7 @@
 Mirrors the reference driver composition (reference: src/main.rs:10-62,
 src/parts/io.rs, src/parts/exec.rs): parse VCF -> per-sample intermediate
 maps -> (optional dumps/stats) -> compile -> execute -> write, with the
-execution stage dispatched to the host oracle (st/mt) or the TPU engine.
+execution stage dispatched to the host oracle (st/mt) or the device engine.
 """
 from __future__ import annotations
 
@@ -31,11 +31,12 @@ from .utils.timers import StageTimer
 
 # Haplotype programs are executed in chunks bounded by result-tape bytes so
 # device buffers stay well under HBM while still amortizing dispatch.
+# Both defaults were tuned on another accelerator and are not yet measured
+# on the H100.
 DEFAULT_CHUNK_RES_BYTES = 256 * 1024 * 1024
-# The device-resident neoantigen chain defaults smaller: measured at
-# north-star scale (ARCHITECTURE 2.6), 2^27-lane chunks beat 2^28 ones
-# (smaller HBM working set + more pipeline overlap) while 2^26 pays too
-# much per-chunk fixed cost.
+# The device-resident neoantigen chain defaults smaller: 2^27-lane chunks
+# beat 2^28 ones there (smaller working set, more pipeline overlap) while
+# 2^26 paid too much per-chunk fixed cost.
 DEFAULT_NEO_CHUNK_RES_BYTES = 128 * 1024 * 1024
 
 
@@ -44,7 +45,7 @@ class PipelineConfig:
     vcf_path: str
     fasta_path: str
     outdir: str
-    engine: Engine = Engine.TPU
+    engine: Engine = Engine.DEVICE
     verbose: bool = False
     compute_stats: bool = False
     write_int_map: bool = False
@@ -76,9 +77,9 @@ class PipelineConfig:
     # empty = the deterministic scaffold initialization
     neoantigen_params: str = ""
     # skip FASTA output entirely: the run's product is the neoantigen TSVs.
-    # On the TPU engine this unlocks the fully device-resident path
-    # (downstream/device_resident.py) -- tapes never cross the device->host
-    # link, only [samples, top] score rows do
+    # On the device engine this unlocks the fully device-resident path
+    # (downstream/device_resident.py) -- tapes never leave the device, only
+    # [samples, top] score rows do
     neoantigen_only: bool = False
     # ranked rows kept per sample in the neoantigen TSVs
     neoantigen_top: int = 200
@@ -91,6 +92,9 @@ class PipelineResult:
     n_haplotype_seqs: int = 0
     total_output_bytes: int = 0
     durations: dict = field(default_factory=dict)
+    # device-resident neoantigen chunks that fell back to the host chain
+    # (malformed pack, non-tiling annotations, >2 GiB chunk)
+    neo_host_chunks: int = 0
 
 
 def parse_vcf_to_int_maps(vcf_path, num_threads=0):
@@ -157,7 +161,7 @@ def execute_programs(programs, blob, engine: Engine,
         from .runtime.engine import resolve_auto
 
         engine = resolve_auto()
-    if engine is Engine.TPU:
+    if engine is Engine.DEVICE:
         import jax
 
         outputs = [None] * len(programs)
@@ -172,6 +176,8 @@ def execute_programs(programs, blob, engine: Engine,
             dev = ShardedEngine(blob, mesh)
             budget = chunk_res_bytes * mesh.devices.size
             for chunk in _chunk_indices(programs, budget):
+                if validate_device:
+                    _check_chunk([programs[i] for i in chunk], blob)
                 outs = dev.execute([programs[i] for i in chunk])
                 for i, o in zip(chunk, outs):
                     outputs[i] = o
@@ -192,16 +198,25 @@ def execute_programs(programs, blob, engine: Engine,
     return [cpu_engine.execute_tasks(p, blob) for p in programs]
 
 
+def _check_chunk(programs, blob):
+    """DEBUG_GPU for the dp-sharded executor: validate the chunk's whole
+    task stream on the first local device before it is sharded."""
+    from .runtime.kernels import check_packed
+    from .runtime.pack import pack_cohort
+
+    check_packed(pack_cohort(programs, blob), len(blob.data))
+
+
 def _device_chunk_results(programs, blob, chunk_res_bytes, validate_device,
                           pair_aligned=False):
-    """Depth-2 chunk pipeline over the single-device TPU engine: one chunk
+    """Depth-2 chunk pipeline over the single-device engine: one chunk
     computes on device while the previous chunk's result streams back; yields
     ``(chunk_indices, outputs)`` in order."""
     from collections import deque
 
-    from .runtime.tpu_engine import TpuEngine
+    from .runtime.device_engine import DeviceEngine
 
-    dev = TpuEngine(blob, validate_on_device=validate_device)
+    dev = DeviceEngine(blob, validate_on_device=validate_device)
     pending = deque()
     for chunk in _chunk_indices(programs, chunk_res_bytes, pair_aligned):
         pending.append((chunk, dev.dispatch([programs[i] for i in chunk])))
@@ -324,15 +339,13 @@ def run_pipeline(cfg: PipelineConfig) -> PipelineResult:
     if engine is Engine.AUTO:
         from .runtime.engine import resolve_auto
 
-        # a neoantigen-only run returns just top-k scores to the host, so
-        # bulk D2H bandwidth stops being the placement criterion; any run
-        # that still writes FASTAs must fetch every tape and is judged on
-        # link bandwidth regardless of where scoring happens
-        engine = resolve_auto(
-            workload="neoantigen_device"
-            if (cfg.neoantigen_k and cfg.neoantigen_only)
-            else "fasta"
-        )
+        engine = resolve_auto()
+    if engine is Engine.DEVICE and cfg.verbose:
+        import jax
+
+        dev = jax.devices()[0]
+        print(f"Device engine on {dev.platform} ({dev.device_kind}) "
+              f"x{jax.local_device_count()}")
     if qc.debug_cpu_exec:
         _validate_host_programs(flat)
 
@@ -343,10 +356,9 @@ def run_pipeline(cfg: PipelineConfig) -> PipelineResult:
 
         neo_params = load_params(cfg.neoantigen_params, cfg.neoantigen_k)
 
-    if cfg.neoantigen_k and cfg.neoantigen_only and engine is Engine.TPU:
+    if cfg.neoantigen_k and cfg.neoantigen_only and engine is Engine.DEVICE:
         # fully device-resident: execute + mask + score + top-k in HBM; the
-        # only device->host traffic is [samples, top] rows, so the slow-link
-        # placement argument for FASTA output does not apply. Multi-chip
+        # only device->host traffic is [samples, top] rows. Multi-device
         # hosts run the dp-sharded chain (samples partitioned over the mesh,
         # blob replicated, no collectives)
         import jax
@@ -366,7 +378,7 @@ def run_pipeline(cfg: PipelineConfig) -> PipelineResult:
             else DEFAULT_NEO_CHUNK_RES_BYTES
         )
         with timer.stage("Neoantigen scoring (device-resident)"):
-            write_device_neoantigen_reports(
+            _paths, result.neo_host_chunks = write_device_neoantigen_reports(
                 cfg.outdir, proband_names, flat, blob, cfg.neoantigen_k,
                 params=neo_params, top=cfg.neoantigen_top,
                 chunk_res_bytes=neo_chunk_bytes, mesh=mesh,
@@ -424,7 +436,7 @@ def run_pipeline(cfg: PipelineConfig) -> PipelineResult:
         from .utils.timers import jax_trace
 
         with jax_trace(cfg.profile_dir or None):
-            if engine is Engine.TPU:
+            if engine is Engine.DEVICE:
                 # device path: chunked, sample-pair-aligned execution with
                 # per-chunk streaming writes; one chunk computes on device
                 # while the previous chunk's samples are written, so host
@@ -441,6 +453,8 @@ def run_pipeline(cfg: PipelineConfig) -> PipelineResult:
                     for chunk in _chunk_indices(
                         flat, budget, pair_aligned=True
                     ):
+                        if qc.debug_device_exec:
+                            _check_chunk([flat[i] for i in chunk], blob)
                         outs = dev.execute([flat[i] for i in chunk])
                         account(
                             finish_sample(chunk[j] // 2, outs[j], outs[j + 1])

@@ -4,7 +4,7 @@
 (reference: src/data_structures/InternalRep/task.rs:38-50, gir.rs:230-233):
 slice copies from the ref/alt tapes into the result tape.
 
-``execute_gather`` is the same computation in the exact formulation the TPU
+``execute_gather`` is the same computation in the exact formulation the device
 executor uses (expand tasks into one gather over a combined ref||alt tape);
 keeping both on the host lets tests assert the two formulations agree
 byte-for-byte before anything touches a device.
@@ -73,7 +73,7 @@ def gather_indices(exe, src, length, total: int, ref_len: int):
 
 
 def execute_gather(prog: HaplotypeProgram, blob: RefBlob) -> np.ndarray:
-    """Vectorized execution via one gather -- the TPU formulation on host."""
+    """Vectorized execution via one gather -- the device formulation on host."""
     if prog.res_len == 0:
         return np.empty(0, dtype=np.uint8)
     combined = np.concatenate([blob.data, _alt_bytes(prog.alt)])

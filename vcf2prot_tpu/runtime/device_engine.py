@@ -1,10 +1,9 @@
-"""TPU execution engine.
+"""Device execution engine.
 
 The reference's (stubbed) accelerator runs one GPU thread per Task row
-(reference: gir.rs:283-299 SoA export, README.md:72). The TPU-native
-formulation is different and stronger: the contiguity invariant means the
-result tape is a *partition* of output positions by task, so the whole cohort
-executes as
+(reference: gir.rs:283-299 SoA export, README.md:72). This build formulates
+it differently: the contiguity invariant means the result tape is a
+*partition* of output positions by task, so the whole cohort executes as
 
     t     = searchsorted(task_dst_starts, j) - 1      # task covering byte j
     out[j] = combined[src_biased[t] + j - dst[t]]     # one gather
@@ -14,34 +13,30 @@ executes as
 alt tape appended; the blob is uploaded once per run and shared by every
 chunk, sample and haplotype.
 
-The covering-task expansion is NOT a per-byte binary search: on real TPU
-hardware the per-byte ``searchsorted`` formulation costs 7.6 s per 33.6 MB
-chunk (~225 ns/query; XLA lowers it to log2(n) serialized gather rounds)
-while the delta-scatter + cumsum + gather kernel completes the same chunk
-in 295 ms -- 25.6x faster (measured, ARCHITECTURE 2.3). So the
+The covering-task expansion is NOT a per-byte binary search: XLA lowers a
+per-byte ``searchsorted`` to log2(n) serialized gather rounds. So the
 per-byte source index is produced by scattering first-difference deltas of
 ``src_biased - dst`` at task starts and cumsum-ing -- identical to
 ``vals[searchsorted(dst, j, 'right') - 1]`` for sorted starts (coincident
-zero-length-task starts telescope to the last task, same tie rule).
+zero-length-task starts telescope to the last task, same tie rule). This
+choice, like the word-aligned form below, was measured on another
+accelerator and is not yet measured on the H100.
 
 No data-dependent control flow, no raggedness on device: chunk totals are
 padded to power-of-two buckets and sliced exactly on the host.
 
-**Word-aligned executor (production since round 4).** The compiler owns
-task boundaries, so the pack can be re-expressed at word granularity on the
-host: every task splits into word-uniform middle words plus an explicit
-boundary-byte list (``build_aligned_program``). The device kernel is then
-fix-up-free -- word-granularity delta expansion (4x fewer cumsum lanes),
-two aligned u32 loads + shift-combine per output word (4x fewer gather
-lanes than the per-byte kernel), and one small boundary byte gather +
-scatter (~5% of output bytes at the production mean task length). Measured
-on the real chip (ARCHITECTURE 2.3): 220 ms vs 296 ms for the per-byte
-delta kernel on the 33.6 MB chunk -- 1.34x, byte-identical output. The
-per-byte ``delta`` kernel remains as the fallback (``VCF2PROT_ALIGNED_EXEC=0``,
-and for >2 GiB int64 packs). The round-3 ``word`` variant's fix-up lane is
-what this removes: alignment is decided at compile time, not per lane at
-run time (reference analogue: task.rs:38-50's copy_from_slice is word-copy
-via memcpy).
+**Word-aligned executor (the default).** The compiler owns task boundaries,
+so the pack can be re-expressed at word granularity on the host: every task
+splits into word-uniform middle words plus an explicit boundary-byte list
+(``build_aligned_program``). The device kernel is then fix-up-free --
+word-granularity delta expansion (4x fewer cumsum lanes), two aligned u32
+loads + shift-combine per output word (4x fewer gather lanes than the
+per-byte kernel), and one small boundary byte gather + scatter (~5% of
+output bytes at the production mean task length); output is byte-identical.
+The per-byte ``delta`` kernel remains as the fallback
+(``VCF2PROT_ALIGNED_EXEC=0``, and for >2 GiB int64 packs). Alignment is
+decided at compile time, not per lane at run time (reference analogue:
+task.rs:38-50's copy_from_slice is word-copy via memcpy).
 """
 from __future__ import annotations
 
@@ -49,6 +44,7 @@ import numpy as np
 
 from ..compiler.haplotype import RefBlob
 from . import cpu_engine
+from .kernels import check_packed
 from .pack import (
     PackedCohort,
     pack_cohort,
@@ -236,7 +232,7 @@ def _get_jitted():
 
 
 
-class TpuEngine:
+class DeviceEngine:
     """Device executor for cohorts of haplotype programs.
 
     Upload the proteome blob once; then ``execute`` arbitrary cohort chunks.
@@ -277,10 +273,13 @@ class TpuEngine:
         """Pack + launch a chunk without blocking; pair with :meth:`collect`.
 
         Returns an opaque handle. Device work proceeds asynchronously, so a
-        caller can keep one chunk in flight while fetching the previous one
-        (the fetch is the expensive leg on slow host links).
+        caller can keep one chunk in flight while fetching and writing the
+        previous one.
         """
         packed = pack_cohort(programs, self.blob)
+        if self.validate:
+            # before any host-side isolation of malformed programs
+            check_packed(packed, len(self.blob.data), self.device)
         good_mask = None
         if not packed.contiguous:
             # isolate the offending program(s): repack only the contiguous
@@ -321,22 +320,6 @@ class TpuEngine:
     def _launch(self, packed: PackedCohort):
         """Upload + dispatch one packed chunk; returns the device array."""
         jax, jnp = self._jax, self._jnp
-        if self.validate:
-            from .kernels import validate_on_device as _validate
-
-            lengths = np.diff(
-                np.append(packed.dst, packed.total_res)
-            ).astype(np.int32)
-            errors = _validate(
-                packed.dst, lengths, packed.src_biased,
-                combined_len=len(self.blob.data) + len(packed.alt),
-                res_len=packed.total_res,
-            )
-            if errors:
-                raise AssertionError(
-                    f"device-side task-stream validation failed: {errors} "
-                    "invariant violations"
-                )
         n_tasks = len(packed.dst)
         idx_dtype = packed.dst.dtype
         task_bucket = pad_to_bucket(n_tasks)
@@ -383,8 +366,8 @@ class TpuEngine:
         srcb = np.zeros(task_bucket, dtype=idx_dtype)
         srcb[:n_tasks] = packed.src_biased
         run = self._runner(out_bucket)
-        # the device-side slice means the later fetch only pays host-link
-        # bandwidth for live bytes, not bucket padding
+        # collect slices on the device, so the fetch copies live bytes
+        # only, not bucket padding
         return run(
             combined,
             jax.device_put(dst, self.device),

@@ -3,21 +3,21 @@
 The reference threads an ``Engine{ST,MT,GPU}`` enum through every stage, with
 the GPU arm stubbed to a panic (reference:
 src/data_structures/InternalRep/engines.rs:15, cli.rs:65-66, gir.rs:236-239).
-This build supplies the accelerator the reference only stubs: ``tpu`` is the
-real device engine. ``gpu`` is accepted as an alias for the accelerator slot
-so existing reference invocations keep working.
+This build supplies the accelerator the reference only stubs: the device
+engine runs the executor (and the neoantigen chain) as XLA programs on JAX's
+default backend. On the command line ``gpu`` selects it and requires a GPU.
 """
 from __future__ import annotations
 
-import os
+import functools
 from enum import Enum
 
 
 class Engine(Enum):
-    ST = "st"     # single-threaded host execution
-    MT = "mt"     # multi-threaded host execution
-    TPU = "tpu"   # device (JAX/XLA) execution
-    AUTO = "auto" # probe the device:host link, pick TPU or host
+    ST = "st"          # single-threaded host execution (the oracle)
+    MT = "mt"          # multi-threaded host execution
+    DEVICE = "device"  # device (JAX/XLA) execution
+    AUTO = "auto"      # device on a GPU backend, else host mt
 
     @staticmethod
     def from_str(s: str) -> "Engine":
@@ -26,158 +26,42 @@ class Engine(Enum):
             return Engine.ST
         if s == "mt":
             return Engine.MT
-        if s in ("tpu", "gpu"):
-            return Engine.TPU
+        if s == "gpu":
+            return Engine.DEVICE
         if s == "auto":
             return Engine.AUTO
         raise ValueError(
-            f"unsupported engine: {s} (expected st, mt, tpu or auto)"
+            f"unsupported engine: {s} (expected st, mt, gpu or auto)"
         )
 
 
-# Device->host bandwidth below which device execution cannot beat host
-# memcpy-speed assembly for an output that must land on host disk. On real
-# TPU hosts (PCIe, GB/s) the probe always selects the device; behind a slow
-# forwarded link it degrades gracefully to the host engine.
-MIN_D2H_BYTES_PER_SEC = 100e6
-
-# One probe per (workload) per process: `auto` is resolved by the pipeline
-# and by execute_programs, and benchmark loops re-enter the pipeline -- the
-# link does not change under a process, so neither should the answer (nor
-# should a second 8 s watchdog be paid).
-_PROBE_CACHE: dict = {}
+class NoGpuError(RuntimeError):
+    """``-g gpu`` was asked for but JAX's default backend is not a GPU."""
 
 
-def _probe_d2h_rate(sample_bytes: int) -> float:
-    """Measured device->host rate (bytes/s), MINIMUM of two fetches (the link
-    must be consistently fast, not just bursting). 0.0 = no usable device."""
-    import time
-
-    import numpy as np
-
+def require_gpu():
+    """The default JAX device, which must be a GPU; raises
+    :class:`NoGpuError` otherwise (JAX quietly falls back to the CPU when
+    its CUDA plugin cannot start)."""
     import jax
 
-    dev = jax.devices()[0]
-    if dev.platform == "cpu":
-        return 0.0
-    rates = []
-    for _ in range(2):
-        x = np.random.randint(0, 255, sample_bytes, dtype=np.uint8)
-        xd = jax.device_put(x, dev)
-        xd.block_until_ready()
-        t0 = time.perf_counter()
-        np.asarray(xd + 1)  # fresh buffer each probe, defeats caching
-        rates.append(sample_bytes / max(time.perf_counter() - t0, 1e-9))
-    return min(rates)
+    try:
+        dev = jax.devices()[0]
+    except RuntimeError as err:  # JAX_PLATFORMS names a backend that failed
+        raise NoGpuError(f"no GPU visible to JAX ({err})") from err
+    if dev.platform != "gpu":
+        raise NoGpuError("no GPU visible to JAX")
+    return dev
 
 
-def h2d_rate(sample_bytes: int = 1 << 24, timeout_s: float = 15.0) -> float:
-    """Measured host->device upload rate (bytes/s), cached per process.
+@functools.cache
+def resolve_auto() -> Engine:
+    """Placement for ``auto``, decided once per process: the device engine
+    when JAX's default backend is a GPU, the host ``mt`` engine otherwise.
 
-    ``inf`` on the CPU backend (uploads are memcpy); ``0.0`` when the probe
-    hangs or fails (a stalled forwarded link must read as "no upload
-    bandwidth", not wedge the caller -- same watchdog discipline as
-    resolve_auto). The fixed dispatch+fetch round trip is subtracted via a
-    tiny-buffer control so the number is marginal bandwidth, which is what
-    upload-heavy device paths (the aligned-execute word program) gate on."""
-    key = ("h2d", sample_bytes)
-    if key in _PROBE_CACHE:
-        return _PROBE_CACHE[key]
-    import threading
-    import time
-
-    result = {"rate": 0.0}
-
-    def probe():
-        try:
-            import numpy as np
-
-            import jax
-
-            dev = jax.devices()[0]
-            if dev.platform == "cpu":
-                result["rate"] = float("inf")
-                return
-
-            def once(nb):
-                x = np.empty(nb, np.uint8)
-                t0 = time.perf_counter()
-                y = jax.device_put(x, dev)
-                np.asarray(y[:1])  # true sync: 1-byte D2H fetch
-                return time.perf_counter() - t0
-
-            small = min(once(1 << 10) for _ in range(2))
-            big = min(once(sample_bytes) for _ in range(2))
-            result["rate"] = sample_bytes / max(big - small, 1e-3)
-        except Exception:
-            pass
-
-    t = threading.Thread(target=probe, daemon=True)
-    t.start()
-    t.join(timeout_s)
-    _PROBE_CACHE[key] = result["rate"]
-    return result["rate"]
-
-
-def _probe_device_roundtrip() -> bool:
-    """True if a small compute + SCALAR fetch completes -- the gate for
-    workloads whose device->host traffic is top-k scores, not bulk tapes."""
-    import numpy as np
-
+    The same rule holds for every product. A FASTA run moves each output
+    byte over PCIe, which a GPU host sustains at GB/s, and a neoantigen run
+    returns only its ranked rows."""
     import jax
-    import jax.numpy as jnp
 
-    dev = jax.devices()[0]
-    if dev.platform == "cpu":
-        return False
-    x = jax.device_put(np.ones(1 << 16, np.float32), dev)
-    return bool(np.isfinite(float(jnp.sum(x))))
-
-
-def resolve_auto(sample_bytes: int = 1 << 23, timeout_s: float = 8.0,
-                 workload: str = "fasta") -> "Engine":
-    """Pick the execution placement for the end-to-end tool, BY PROBING.
-
-    ``workload`` declares where the output bytes must end up:
-
-    * ``"fasta"`` -- every output byte lands on host disk, so the device only
-      wins if the device->host link sustains >= ``MIN_D2H_BYTES_PER_SEC``
-      (PCIe TPU hosts: yes; this dev environment's forwarded link: no).
-    * ``"neoantigen_device"`` -- the cohort-batched scoring path returns only
-      top-k scores; bulk D2H bandwidth is irrelevant, so any device that
-      completes a small compute + scalar-fetch round trip is preferred.
-
-    Every probe runs under a watchdog: a flaky forwarded link can stall a
-    fetch for minutes, and a hung probe must itself count as a failed probe
-    (the daemon thread is abandoned, the host engine is returned).
-
-    ``VCF2PROT_PREFER_DEVICE=1`` skips the bandwidth gate (device if the
-    round trip works); ``=0`` forces the host engine without probing.
-    """
-    pref = os.environ.get("VCF2PROT_PREFER_DEVICE")
-    if pref == "0":
-        return Engine.MT
-    key = (workload, pref)
-    if key in _PROBE_CACHE:
-        return _PROBE_CACHE[key]
-    import threading
-
-    result = {"engine": Engine.MT}
-
-    def probe():
-        try:
-            if workload == "neoantigen_device" or pref == "1":
-                if _probe_device_roundtrip():
-                    result["engine"] = Engine.TPU
-            elif _probe_d2h_rate(sample_bytes) >= MIN_D2H_BYTES_PER_SEC:
-                result["engine"] = Engine.TPU
-        except Exception:
-            pass
-
-    t = threading.Thread(target=probe, daemon=True)
-    t.start()
-    t.join(timeout_s)
-    # a timed-out probe leaves Engine.MT; cache it -- a link that just hung
-    # for `timeout_s` is not one to re-probe every pipeline stage
-    _PROBE_CACHE[key] = result["engine"]
-    return result["engine"]
+    return Engine.DEVICE if jax.default_backend() == "gpu" else Engine.MT

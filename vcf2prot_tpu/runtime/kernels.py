@@ -1,21 +1,14 @@
-"""Pallas TPU kernels.
+"""Device-side self-validation of the task stream.
 
-Kernel-design note for the hot op (the segmented gather executor): the
-production formulation is delta-scatter + cumsum + gather (measured 295 ms
-for a 33.6 MB tape on the real chip -- 25.6x the per-byte-searchsorted
-form; ARCHITECTURE 2.3). A hand-written DMA copy engine loses here because
-the mean task length (~45 bytes) makes per-task DMA dispatch dominate, and
-per-element VMEM gather is limited to lane-wise (axis-1)
-``take_along_axis`` on the current Mosaic toolchain, so the executor stays
-an XLA program; see ARCHITECTURE.md for the full analysis (including why
-bulk tape assembly still places on the HOST tier end-to-end).
-
-What Pallas does own here is the device-side self-validation of the task
-stream -- the role the reference reserved for its (stubbed) ``DEBUG_GPU``
-check of the GPU input arrays (reference: cli.rs:96, gir.rs:283-299): verify,
-on device and in one pass, that the program tiles the result tape contiguously
-and every source span is in bounds. This guards the executor's searchsorted
-precondition right next to where it is consumed.
+The reference reserved a ``DEBUG_GPU`` check of the GPU input arrays for its
+(stubbed) accelerator (reference: cli.rs:96, gir.rs:283-299). This build
+realizes it as one jitted masked reduction, run on the device right before
+the executor consumes the program: it counts, in one pass over the padded
+task arrays, every pair of neighbouring tasks that does not tile the result
+tape contiguously and every source or destination span out of bounds. That
+guards the executor's delta-expansion precondition right next to where it is
+consumed. XLA fuses the whole check into one reduction, so no hand-written
+kernel is needed.
 """
 from __future__ import annotations
 
@@ -23,110 +16,71 @@ import functools
 
 import numpy as np
 
-_BLOCK = 2048
+from .pack import pad_to_bucket
 
 
-def _build_validator(n_tasks: int, combined_len: int, res_len: int,
-                     interpret: bool):
-    import jax
+def count_violations(dst, length, srcb, n_tasks, combined_len, res_len):
+    """Number of violated task-stream invariants among the first ``n_tasks``
+    entries of the (padded) task arrays; pure jnp, jit-compatible."""
     import jax.numpy as jnp
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
 
-    grid = (n_tasks + _BLOCK - 1) // _BLOCK
-
-    def kernel(dst_ref, len_ref, srcb_ref, err_ref):
-        b = pl.program_id(0)
-
-        @pl.when(b == 0)
-        def _():
-            err_ref[0, 0] = 0
-
-        dst = dst_ref[:, :]        # (1, BLOCK)
-        length = len_ref[:, :]
-        srcb = srcb_ref[:, :]
-        base = b * _BLOCK
-        ids = jax.lax.broadcasted_iota(jnp.int32, (1, _BLOCK), 1)
-        live = base + ids < n_tasks
-        ends = dst + length
-        # contiguity within the block: dst[:, i+1] == ends[:, i]
-        pair_live = live[:, 1:] & (base + ids[:, 1:] < n_tasks)
-        contig_bad = jnp.sum(
-            jnp.where(pair_live & (dst[:, 1:] != ends[:, :-1]), 1, 0),
-            dtype=jnp.int32,
-        )
-        # source bounds: 0 <= srcb and srcb + len <= combined_len
-        src_bad = jnp.sum(
-            jnp.where(
-                live & ((srcb < 0) | (srcb + length > combined_len)), 1, 0
-            ),
-            dtype=jnp.int32,
-        )
-        # destination bounds
-        dst_bad = jnp.sum(
-            jnp.where(live & ((dst < 0) | (ends > res_len)), 1, 0),
-            dtype=jnp.int32,
-        )
-        err_ref[0, 0] = err_ref[0, 0] + contig_bad + src_bad + dst_bad
-
-    return pl.pallas_call(
-        kernel,
-        grid=(grid,),
-        in_specs=[
-            pl.BlockSpec((1, _BLOCK), lambda b: (0, b),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, _BLOCK), lambda b: (0, b),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, _BLOCK), lambda b: (0, b),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(memory_space=pltpu.SMEM),
-        out_shape=jax.ShapeDtypeStruct((1, 1), jnp.int32),
-        interpret=interpret,
+    live = jnp.arange(dst.shape[0], dtype=jnp.int32) < n_tasks
+    ends = dst + length
+    # contiguity: each task starts where its predecessor ends
+    contig_bad = jnp.sum(live[1:] & (dst[1:] != ends[:-1]), dtype=jnp.int32)
+    src_bad = jnp.sum(
+        live & ((srcb < 0) | (srcb + length > combined_len)), dtype=jnp.int32
     )
+    dst_bad = jnp.sum(live & ((dst < 0) | (ends > res_len)), dtype=jnp.int32)
+    return contig_bad + src_bad + dst_bad
 
 
-@functools.lru_cache(maxsize=64)
-def _validator(n_tasks, combined_len, res_len, padded, interpret):
+@functools.lru_cache(maxsize=1)
+def _validator():
     import jax
 
-    fn = _build_validator(n_tasks, combined_len, res_len, interpret)
+    return jax.jit(count_violations)
 
-    @jax.jit
-    def run(dst, length, srcb):
-        return fn(dst, length, srcb)
-
-    return run
 
 def validate_on_device(dst, length, srcb, combined_len: int, res_len: int,
-                       interpret: bool = False) -> int:
+                       device=None) -> int:
     """Device-side task-program validation.
 
-    Returns the number of violated invariants (0 = valid). Block-boundary
-    pairs are checked host-side (cheap: one comparison per 2048 tasks).
-    ``interpret=True`` runs the kernel in the Pallas interpreter (CPU tests).
+    Returns the number of violated invariants (0 = valid). The task arrays
+    are padded to a power-of-two bucket so one compile serves every chunk of
+    a run; the live count and the bounds are traced scalars.
     """
     n = len(dst)
     if n == 0:
         return 0
+    import jax
+
     from ..utils.jaxcache import enable_persistent_cache
 
     enable_persistent_cache()
-    padded = ((n + _BLOCK - 1) // _BLOCK) * _BLOCK
-    dst_p = np.zeros(padded, dtype=np.int32)
-    len_p = np.zeros(padded, dtype=np.int32)
-    src_p = np.zeros(padded, dtype=np.int32)
-    dst_p[:n] = dst
-    len_p[:n] = length
-    src_p[:n] = srcb
-    run = _validator(n, combined_len, res_len, padded, interpret)
-    errors = int(
-        np.asarray(
-            run(dst_p[None, :], len_p[None, :], src_p[None, :])
-        )[0, 0]
+    padded = pad_to_bucket(n)
+    arrays = []
+    for a in (dst, length, srcb):
+        p = np.zeros(padded, dtype=np.int32)
+        p[:n] = a
+        arrays.append(jax.device_put(p, device))
+    return int(
+        _validator()(
+            *arrays, np.int32(n), np.int32(combined_len), np.int32(res_len)
+        )
     )
-    # cross-block contiguity pairs, host-side
-    for b in range(_BLOCK - 1, n - 1, _BLOCK):
-        if dst[b + 1] != dst[b] + length[b]:
-            errors += 1
-    return errors
+
+
+def check_packed(packed, blob_len: int, device=None) -> None:
+    """DEBUG_GPU: validate one packed chunk on the device; raise on any
+    violation (the reference's check panics)."""
+    errors = validate_on_device(
+        packed.dst, packed.length, packed.src_biased,
+        combined_len=blob_len + len(packed.alt), res_len=packed.total_res,
+        device=device,
+    )
+    if errors:
+        raise AssertionError(
+            f"device-side task-stream validation failed: {errors} "
+            "invariant violations"
+        )

@@ -6,7 +6,7 @@ assembler performs over transcripts (reference:
 src/data_structures/InternalRep/haplotype_instruction.rs:94-133) -- applied
 across *all samples' haplotypes* so a single device invocation executes the
 whole cohort chunk. The reference has no analogue: its unit of execution is
-one haplotype. On TPU, larger flat programs amortize dispatch and keep the
+one haplotype. On the device, larger flat programs amortize dispatch and keep the
 gather saturated.
 
 Produces int32 SoA arrays plus per-haplotype result spans for host-side
@@ -38,6 +38,9 @@ class PackedCohort:
     # when the programs were pool-compiled; engines key their cached
     # combined-tape uploads on it. None => chunk-local alt tape.
     alt_key: object = None
+    # int64[n_tasks] task lengths, for the DEBUG_GPU validator (the
+    # executors derive every length from the dst starts)
+    length: np.ndarray = None
 
 
 def pack_cohort(programs, blob: RefBlob) -> PackedCohort:
@@ -103,7 +106,7 @@ def pack_cohort(programs, blob: RefBlob) -> PackedCohort:
             and int(ends[-1]) == res_counter
         )
     )
-    # int32 indices are preferred on TPU but only safe below 2 GiB of result
+    # int32 indices are preferred on the device but only safe below 2 GiB of result
     # tape / combined tape; very large chunks keep int64
     max_index = max(
         res_counter, len(blob.data) + alt_counter, 1
@@ -117,6 +120,7 @@ def pack_cohort(programs, blob: RefBlob) -> PackedCohort:
         spans,
         contiguous,
         alt_key=id(programs[0].alt) if pooled else None,
+        length=length,
     )
 
 

@@ -7,7 +7,7 @@ at ``dst`` (reference: src/data_structures/InternalRep/task.rs:2-50).
 The flat structure-of-arrays form lives on
 :class:`~vcf2prot_tpu.compiler.haplotype.HaplotypeProgram` -- the exact shape
 the reference exports for its (stubbed) GPU engine (reference: gir.rs:283-299)
-and what crosses the host->HBM boundary on TPU.
+and what crosses the host->HBM boundary on the device.
 """
 from __future__ import annotations
 

@@ -1,25 +1,40 @@
-"""Chip-peak accounting: turn wall-clock into %-of-peak (MFU / HBM fraction).
+"""Device-peak accounting: turn a kernel time into a roofline share.
 
-Every device wall-clock number in ARCHITECTURE.md carries a denominator from
-here so "is it actually fast?" has a hardware answer, not just a
-faster-than-host one. Peaks default to TPU v5e (v5 lite -- the chip this
-environment forwards): 197 TFLOP/s bf16 on the MXU, 819 GB/s HBM. Override
-with TPU_PEAK_BF16_FLOPS / TPU_PEAK_HBM_BPS for other chips.
+Peaks are keyed by ``jax.devices()[0].device_kind``; a device that is not in
+the table is an error, not a default. Source: NVIDIA's H100 data sheet,
+dense rates without sparsity, at the card's full power limit (700 W SXM,
+350 W PCIe); a card set below its limit cannot hold its top clock under a
+matrix-heavy load, so report the limit beside any share.
 
 The reference publishes no utilization numbers at all (SURVEY 6); its
 stubbed accelerator (gir.rs:283-299) is the role these denominators grade.
 """
 from __future__ import annotations
 
-import os
+from typing import NamedTuple
 
 
-def peak_bf16_flops() -> float:
-    return float(os.environ.get("TPU_PEAK_BF16_FLOPS", 197e12))
+class Peaks(NamedTuple):
+    bf16_flops: float  # dense bf16 tensor-core FLOP/s
+    hbm_bps: float     # HBM bytes/s
 
 
-def peak_hbm_bps() -> float:
-    return float(os.environ.get("TPU_PEAK_HBM_BPS", 819e9))
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": Peaks(989e12, 3.35e12),  # SXM5
+    "NVIDIA H100 PCIe": Peaks(756e12, 2.0e12),
+}
+
+
+def peaks(device_kind: str) -> Peaks:
+    """Published peaks of ``device_kind``; raises ``KeyError`` for a device
+    the table does not hold."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published peaks for device kind {device_kind!r}; "
+            f"known: {sorted(PEAKS)}"
+        ) from None
 
 
 def scoring_flops_per_window(params: dict) -> float:
@@ -50,22 +65,24 @@ def scoring_flops_per_window(params: dict) -> float:
 def dense_pass_flops(n_windows: int, params: dict) -> float:
     """Total matmul FLOPs of the dense scoring pass over ``n_windows`` tape
     positions (the device chain scores EVERY position; padding included --
-    the MXU runs them all)."""
+    the device runs them all)."""
     return n_windows * scoring_flops_per_window(params)
 
 
 def executor_bytes(out_len: int, index_bytes: int = 4) -> float:
-    """Minimal HBM traffic of the delta executor for ``out_len`` output
+    """HBM traffic of the per-byte delta executor for ``out_len`` output
     bytes: read one index lane + one source byte, write one output byte,
-    plus the cumsum's read+write of the index lane."""
+    plus the cumsum's read+write of the index lane. The word-aligned
+    executor moves far less per output byte, so this overstates its
+    traffic."""
     return float(out_len) * (3 * index_bytes + 2)
 
 
-def mfu(flops: float, seconds: float) -> float:
-    """Fraction of bf16 MXU peak achieved."""
-    return flops / seconds / peak_bf16_flops()
+def mfu(flops: float, seconds: float, device_kind: str) -> float:
+    """Fraction of the device's dense bf16 peak achieved."""
+    return flops / seconds / peaks(device_kind).bf16_flops
 
 
-def hbm_fraction(nbytes: float, seconds: float) -> float:
-    """Fraction of HBM-bandwidth peak achieved."""
-    return nbytes / seconds / peak_hbm_bps()
+def hbm_fraction(nbytes: float, seconds: float, device_kind: str) -> float:
+    """Fraction of the device's HBM-bandwidth peak achieved."""
+    return nbytes / seconds / peaks(device_kind).hbm_bps
